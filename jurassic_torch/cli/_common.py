@@ -12,7 +12,7 @@ from __future__ import annotations
 import sys
 from typing import Sequence
 
-from jurassic_tpu.config import Ctl, CtlError, CtlScanner, read_ctl
+from ..config import Ctl, CtlError, CtlScanner, read_ctl
 
 
 def die(msg: str) -> None:

@@ -6,18 +6,20 @@ Usage: ``python -m jurassic_torch.cli.formod <ctl> <obs> <atm> <rad>
 
 Runs the plain forward model once and writes the radiance file.  The
 ``BENCH``/``BENCH_SCALING`` timing flags of the JAX CLI are not ported
-yet.  The last line reports the device and the number of fused-kernel
-launches (0 on the CPU, where the plain PyTorch version runs).
+yet.  The last line reports the device, what the fused pass ran
+(``turbo``, ``table`` or ``turbo+hybrid``) and the launches of the two
+fused kernels (0 on the CPU, where the plain PyTorch versions run).
 """
 from __future__ import annotations
 
 import sys
 
-from jurassic_tpu.io_tab import read_atm, read_obs, write_obs
-from jurassic_tpu.utils import timer
-
 from ..forward import ROADMAP_WAITS, ForwardModel
+from ..geometry import hydrostatic_atm
+from ..io_tab import read_atm, read_obs, write_obs
 from ..ops import ega_fused
+from ..tables import tables_checkmode
+from ..utils import timer
 from ._common import cli_main, load_ctl
 
 
@@ -35,16 +37,13 @@ def main(argv=None) -> int:
     if ctl.checkmode:
         # dry-run validation (jurassic.c:401-413, 654): report the table
         # filename patterns per gas and validate the filter files open
-        from jurassic_tpu.tables import tables_checkmode
-
-        from ..geometry import hydrostatic_atm
         tables_checkmode(ctl, ".")
         hydrostatic_atm(ctl, atm)
         print(f"# formod: checkmode = {ctl.checkmode}, "
               "no actual computation is performed!")
         write_obs(argv[4], ctl, obs)
         return 0
-    launches0 = ega_fused.LAUNCHES
+    n_turbo, n_table = ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE
     timer("INIT_MODEL", 1)
     fm = ForwardModel(ctl)
     timer("INIT_MODEL", 3)
@@ -52,8 +51,10 @@ def main(argv=None) -> int:
     fm.formod(atm, obs)
     timer("FORMOD", 3)
     write_obs(argv[4], ctl, obs)
-    print(f"# formod: device {fm.device}, fused EGA kernel launches "
-          f"{ega_fused.LAUNCHES - launches0}")
+    print(f"# formod: device {fm.device}, variant {fm.last_variant}, "
+          f"fused EGA kernel launches turbo "
+          f"{ega_fused.LAUNCHES - n_turbo} table "
+          f"{ega_fused.LAUNCHES_TABLE - n_table}")
     return 0
 
 

@@ -2,44 +2,58 @@
 
 One call of :meth:`ForwardModel.formod` runs hydrostatics (host NumPy),
 ray tracing (``geometry.trace_rays``, plain tensor code on the execution
-device), the fused EGA radiative-transfer pass on Chebyshev turbo tables
-(``ops.ega_fused.rt_fused_turbo``: the CUDA kernel on a GPU, its plain
-PyTorch version on the CPU), the surface and brightness epilogue, one
-device-to-host pull, and the host-side FOV convolution and observation
-mask.
+device), the fused EGA radiative-transfer pass (``ops.ega_fused``: a CUDA
+kernel on a GPU, its plain PyTorch version on the CPU), the surface and
+brightness epilogue, one device-to-host pull, and the host-side FOV
+convolution and observation mask.
 
-Ported in this slice: ``KERNEL = auto|turbo`` on turbo tables that pass
-the fit gate with no bad rows, ``IP = 1``, one ray batch.  The other
-modes raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.  ``KERNEL = auto`` resolves to turbo on every device (the port has
-one radiative-transfer path; JAX resolves it to its jnp pipeline on the
-CPU).
+Kernel modes (``KERNEL``), with ``IP = 1`` and one ray batch:
+
+* ``turbo``: Chebyshev turbo tables; the fit must pass the gate.
+  Tables with a few bad-fit rows (at most ``JURASSIC_TURBO_HYBRID_MAX``
+  of all rows) run the per-row hybrid: the turbo pass marks the lanes
+  that consumed a bad row and those lanes are re-evaluated through the
+  table-mode pass.
+* ``pallas``: the table-mode pass on the exact log-uniform tables (the
+  name is the JAX package's; here it selects the hand-written table
+  kernel).
+* ``auto``: turbo, demoted to the table-mode pass when the gate rejects
+  the fit.  It resolves to the fused pass on every device (JAX resolves
+  it to its jnp pipeline on the CPU).
+
+The other modes raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from jurassic_tpu.config import NFOV, Ctl
-from jurassic_tpu.constants import C1, C2
-from jurassic_tpu.io_tab import Atm, Obs, read_shape
-from jurassic_tpu.tables import (EgaTables, FastTables, build_fast_tables,
-                                 load_tables_cached)
-
+from .config import NFOV, Ctl
+from .constants import C1, C2
 from .device import RT_DTYPE, resolve_device, tracer_dtype
 from .geometry import (LosData, build_ray_profiles, hydrostatic_atm,
                        trace_rays)
+from .io_tab import Atm, Obs, read_shape
 from .ops.continua import precompute_continua
-from .ops.ega_fused import pack_continua, rt_fused_turbo
+from .ops.ega_fused import pack_continua, rt_fused_table, rt_fused_turbo
+from .ops.table_pack import TableTables, build_table_tables
 from .ops.turbo_fit import (CHORD_TOL, FIT_TOL, TurboStats, TurboTables,
                             build_turbo_tables)
+from .tables import (EgaTables, FastTables, build_fast_tables,
+                     load_tables_cached)
 
 ROADMAP_WAITS = "ROADMAP.md, section 1, 'What waits'"
 
-# the turbo fit gate of the JAX driver (forward.py:398-410)
-HYBRID_MAX = 0.05   # largest bad-row fraction the hybrid would take
+
+def hybrid_max() -> float:
+    """Largest bad-row fraction the per-row hybrid takes before the whole
+    configuration demotes to the table kernel: the JAX package's
+    ``JURASSIC_TURBO_HYBRID_MAX`` knob (forward.py:404-405), default 5 %."""
+    return float(os.environ.get("JURASSIC_TURBO_HYBRID_MAX", "0.05"))
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +151,13 @@ class ForwardModel:
     pinned value); the tracer runs in float64 on the CPU and float32 on
     CUDA (``device.tracer_dtype``).  ``turbo_tables`` (with ``turbo_stats``)
     injects tables fitted elsewhere from the given tables, e.g. a cached
-    fit."""
+    fit.
+
+    After construction ``turbo_tbl`` holds the turbo tables (None in
+    table mode) and ``table_tbl`` the exact tables (None in pure turbo
+    mode); both are set for the hybrid.  ``last_variant`` names what the
+    last :meth:`integrate` ran: ``"turbo"``, ``"table"`` or
+    ``"turbo+hybrid"``."""
 
     def __init__(self, ctl: Ctl, tables: EgaTables | None = None,
                  directory: str = ".",
@@ -150,12 +170,12 @@ class ForwardModel:
             raise ValueError(
                 f"FORMOD = {ctl.formod} is not supported (1 = CGA and "
                 "3 = RFM are not implemented; use FORMOD = 2 for EGA)")
-        if ctl.kernel not in ("auto", "turbo"):
+        if ctl.kernel not in ("auto", "turbo", "pallas"):
             raise NotImplementedError(
                 f"KERNEL = {ctl.kernel} is not ported yet: the port runs "
-                "the turbo kernel (KERNEL = auto|turbo); the table-mode "
-                "kernel (KERNEL = pallas) and the eager oracles "
-                f"(KERNEL = exact|jax|fast) are later items ({ROADMAP_WAITS})")
+                "the fused kernels (KERNEL = auto|turbo|pallas); the eager "
+                f"oracles (KERNEL = exact|jax|fast) are later items "
+                f"({ROADMAP_WAITS})")
         self.device = resolve_device(ctl.usetpu, device)
         self.dtype = tracer_dtype(self.device)
 
@@ -166,20 +186,22 @@ class ForwardModel:
                                      "EgaTables they were fitted from")
                 tables = load_tables_cached(ctl, directory)
             fast_tables = build_fast_tables(tables)
-        if turbo_tables is None:
-            turbo_tables, turbo_stats = build_turbo_tables(fast_tables,
-                                                           self.device)
-            if turbo_tables is None:
-                msg = ("requires channel-uniform table axes per gas "
-                       "(the turbo table build returned None)")
-                if ctl.kernel == "turbo":
-                    raise ValueError(f"KERNEL = turbo {msg}")
+        self.turbo_tbl: TurboTables | None = None
+        self.turbo_stats: TurboStats | None = None
+        self.table_tbl: TableTables | None = None
+        self.last_variant: str | None = None
+        if ctl.kernel != "pallas":
+            self._init_turbo(fast_tables, turbo_tables, turbo_stats)
+        if self.turbo_tbl is None:
+            self.table_tbl = build_table_tables(fast_tables, self.device)
+        if self.turbo_tbl is None and self.table_tbl is None:
+            msg = ("requires channel-uniform table axes per gas (table "
+                   "build returned None)")
+            if ctl.kernel == "auto":
                 raise NotImplementedError(
                     f"KERNEL = auto on these tables needs the jnp "
                     f"pipeline, a later item ({ROADMAP_WAITS}): {msg}")
-        self.turbo_tbl = turbo_tables.to(self.device)
-        self.turbo_stats = turbo_stats
-        self._gate()
+            raise ValueError(f"KERNEL = {ctl.kernel} {msg}")
 
         def f64(a):
             return torch.as_tensor(np.asarray(a, np.float64)).to(self.device)
@@ -198,35 +220,50 @@ class ForwardModel:
             ctl.ctm_o2 == 1,
         )
 
-    def _gate(self) -> None:
-        """The JAX driver's turbo acceptance gate (forward.py:383-433):
-        fit error and chord deviation of the good rows bound turbo
-        against the emissivity curve and the table kernels' chords, and
-        at most HYBRID_MAX of the rows may fail the per-row gate.  A
-        rejected fit is an error under KERNEL = turbo and needs the table
-        kernel under auto; accepted tables with bad rows need the hybrid
-        re-run.  Neither is ported yet."""
-        st = self.turbo_stats
-        n_bad = self.turbo_tbl.n_bad
-        rejected = st is not None and (
-            max(st.max_fwd_err, st.max_inv_err) > FIT_TOL
-            or st.max_chord_dev > CHORD_TOL
-            or n_bad / max(st.rows, 1) > HYBRID_MAX)
-        if rejected and self.ctl.kernel == "turbo":
+    def _init_turbo(self, fast_tables: FastTables,
+                    turbo_tables: TurboTables | None,
+                    turbo_stats: TurboStats | None) -> None:
+        """KERNEL = turbo|auto: fit (or take) the turbo tables and apply
+        the JAX package's acceptance gate (forward.py:383-437).  The fit
+        error and chord deviation of the good rows bound turbo against
+        the emissivity curve and the table kernel's chords, and at most
+        ``hybrid_max()`` of the rows may fail the per-row gate.  Accepted
+        tables with bad rows also get their exact backing for the hybrid.
+        A rejected fit (or bad rows without a backing) is an error under
+        KERNEL = turbo and leaves ``turbo_tbl`` None under auto, which
+        the caller demotes to the table kernel."""
+        if turbo_tables is None:
+            turbo_tables, turbo_stats = build_turbo_tables(fast_tables,
+                                                           self.device)
+            if turbo_tables is None:
+                return          # ragged axes: the caller raises
+        elif turbo_stats is None:
+            raise ValueError("turbo_tables need the turbo_stats of their fit")
+        st, n_bad = turbo_stats, turbo_tables.n_bad
+        frac_bad = n_bad / max(st.rows, 1)
+        bad = (max(st.max_fwd_err, st.max_inv_err) > FIT_TOL
+               or st.max_chord_dev > CHORD_TOL
+               or frac_bad > hybrid_max())
+        table_tbl = None
+        if not bad and n_bad > 0:
+            table_tbl = build_table_tables(fast_tables, self.device)
+            if table_tbl is None:
+                bad = True                    # no exact backing: demote
+            else:
+                print(f"# turbo hybrid: {n_bad} of {st.rows} rows failed "
+                      f"the per-row fit gate (pass rate "
+                      f"{1 - frac_bad:.2%}); tainted lanes re-evaluate "
+                      "through the table kernel")
+        if bad and self.ctl.kernel == "turbo":
             raise ValueError(
                 "KERNEL = turbo: Chebyshev fit validation failed "
                 f"({st}, bad rows {n_bad}); these tables need KERNEL = "
                 "pallas")
-        if rejected:
-            raise NotImplementedError(
-                "KERNEL = auto: the turbo fit was rejected and the "
-                f"table-mode kernel it falls back to is a later item "
-                f"({ROADMAP_WAITS}; {st})")
-        if n_bad > 0:
-            raise NotImplementedError(
-                f"turbo tables with {n_bad} bad-fit rows need the hybrid "
-                f"re-run through the table-mode kernel, a later item "
-                f"({ROADMAP_WAITS})")
+        if bad:
+            return
+        self.turbo_tbl = turbo_tables.to(self.device)
+        self.turbo_stats = turbo_stats
+        self.table_tbl = table_tbl
 
     def trace(self, atm: Atm, obs: Obs) -> LosData:
         """Hydrostatic adjustment + ray tracing (hydrostatic1d_CPU +
@@ -240,9 +277,28 @@ class ForwardModel:
         return trace_rays(self.ctl, prof, obs_geo)
 
     def integrate(self, los: LosData) -> RtOut:
-        """The fused EGA pass plus the surface/brightness epilogue."""
-        rad, tau = rt_fused_turbo(self.turbo_tbl, self.cc_rows, los,
-                                  self.flags, self.ig_co2, self.ig_h2o)
+        """The fused EGA pass plus the surface/brightness epilogue.
+
+        Hybrid (turbo tables with bad-fit rows): the turbo pass also
+        returns the taint map; where any lane is tainted the table-mode
+        pass runs on the same batch and whole lanes are spliced in on the
+        device, as the JAX package splices them (forward.py:972-978).  The
+        "any lane tainted" test is one scalar device-to-host sync."""
+        args = (self.cc_rows, los, self.flags, self.ig_co2, self.ig_h2o)
+        if self.turbo_tbl is None:
+            rad, tau = rt_fused_table(self.table_tbl, *args)
+            self.last_variant = "table"
+        else:
+            rad, tau, taint = rt_fused_turbo(self.turbo_tbl, *args)
+            self.last_variant = "turbo"
+            n_taint = 0 if taint is None else int(taint.sum())
+            if n_taint:
+                rad2, tau2 = rt_fused_table(self.table_tbl, *args)
+                rad = torch.where(taint, rad2, rad)
+                tau = torch.where(taint, tau2, tau)
+                self.last_variant = "turbo+hybrid"
+                print(f"# turbo hybrid: {n_taint} of {taint.numel()} lanes "
+                      "re-evaluated through the table kernel")
         return rt_epilogue(rad, tau, self.sr, self.st, self.nu, los.tsurf,
                            bool(self.ctl.write_bbt))
 

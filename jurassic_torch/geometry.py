@@ -22,9 +22,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jurassic_tpu.config import Ctl
-from jurassic_tpu.constants import KB, RE
-from jurassic_tpu.io_tab import Atm, Obs
+from .config import Ctl
+from .constants import KB, MM_AIR, MM_H2O, RE, RGAS
+from .io_tab import Atm, Obs
 
 DEG2RAD = np.pi / 180.0
 RAD2DEG = 180.0 / np.pi
@@ -493,7 +493,6 @@ def hydrostatic_profile(ctl_hydz: float, z: np.ndarray, p: np.ndarray,
                         t: np.ndarray, q_h2o, lat: np.ndarray) -> np.ndarray:
     """Rebuild p(z) from temperature and humidity around the reference
     height; NumPy float64 host implementation (profiles are small)."""
-    from jurassic_tpu.constants import MM_AIR, MM_H2O, RGAS
     n = z.size
     ipref = int(np.argmin(np.abs(z - ctl_hydz)))
     lat0 = lat[ipref]

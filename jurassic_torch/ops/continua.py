@@ -6,7 +6,8 @@ Every wavenumber-dependent coefficient of continua_ctm{co2,h2o,n2,o2}
 precomputed on the host in float64 NumPy.  The runtime arithmetic lives
 in the fused EGA pass (``ops/ega_fused.py``), which reads these
 coefficients packed as rows (``pack_continua``).  The coefficient data is
-read by path from the JAX package's ``data/continua.npz``.
+the package's own ``data/continua.npz`` (a byte copy of the JAX
+package's).
 """
 from __future__ import annotations
 
@@ -16,10 +17,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-import jurassic_tpu
-from jurassic_tpu.config import Ctl
+from ..config import Ctl
 
-_DATA = Path(jurassic_tpu.__file__).parent / "data" / "continua.npz"
+_DATA = Path(__file__).resolve().parent.parent / "data" / "continua.npz"
 
 
 @lru_cache(maxsize=1)

@@ -1,48 +1,59 @@
-"""Fused EGA radiative-transfer pass on turbo tables (port of
-``jurassic_tpu/ops/pallas/ega_fused.py``, turbo mode).
+"""Fused EGA radiative-transfer pass (port of
+``jurassic_tpu/ops/pallas/ega_fused.py``), on turbo tables and on the
+exact log-uniform tables.
 
 For every (ray, channel) the pass walks the ray's LOS segments and
 fuses the continuum optical depth (continua_core, jr_common.h:397-409),
-the per-gas EGA transmittance update on Chebyshev-compressed tables
-(``_eta_of``/``_turbo_corner``, ega_fused.py:763-841), the Planck source
-(``_source_rows``, :844-856) and the radiative-transfer recursion
-(new_obs_core, jr_common.h:294-300).
+the per-gas EGA transmittance update at the four bracketing (p, T)
+table corners, the Planck source (``_source_rows``, :844-856) and the
+radiative-transfer recursion (new_obs_core, jr_common.h:294-300).  The
+corner is evaluated one of two ways:
 
-Two implementations of one function:
+* turbo: two Clenshaw recurrences on Chebyshev-compressed rows
+  (``_eta_of``/``_turbo_corner``, ega_fused.py:763-841), with a taint
+  map of the lanes that consumed a bad-fit row when the tables have any;
+* table: the exact row search on the log-uniform emissivity curve
+  (``row_lookup``, ega_fused.py:980-1002).
 
-* :func:`rt_fused_turbo_ref` -- the plain PyTorch version, vectorised
-  over [rays, gases, corners, channels] with a Python loop over the LOS
-  segments.  It runs on any device and is what CPU tensors get.
-* the CUDA kernel ``csrc/ega_fused_turbo.cu`` -- one block per ray, one
-  thread per channel, the per-gas ``tau_path`` in registers, corner
-  bracketing and table-row reads inside the kernel.
+Each has two implementations of one function:
 
-:func:`rt_fused_turbo` dispatches on the device of its tensors: the
-plain version for CPU tensors, the kernel for CUDA tensors (or an error;
-nothing falls back).  ``LAUNCHES`` counts kernel launches.
+* :func:`rt_fused_turbo_ref` / :func:`rt_fused_table_ref` -- the plain
+  PyTorch versions, vectorised over [rays, gases, corners, channels]
+  with a Python loop over the LOS segments, sharing everything but the
+  corner routine.  They run on any device and are what CPU tensors get.
+* the CUDA kernels ``csrc/ega_fused_turbo.cu`` and
+  ``csrc/ega_fused_table.cu`` (shared code in ``csrc/ega_common.cuh``)
+  -- one block per ray, one thread per channel, the per-gas ``tau_path``
+  in registers, corner bracketing and table-row reads inside the kernel.
 
-The TPU feeding machinery of the JAX kernel (tangent-sorted 8-ray
-groups, 128-lane padding, the group/pool schedules, the pool gather and
-its capacity flag) is not ported: each CUDA block gathers its own rows.
-Outputs are in input ray order.
+:func:`rt_fused_turbo` and :func:`rt_fused_table` dispatch on the device
+of their tensors: the plain version for CPU tensors, the kernel for CUDA
+tensors (or an error; nothing falls back).  ``LAUNCHES`` and
+``LAUNCHES_TABLE`` count kernel launches.
+
+The TPU feeding machinery of the JAX kernels (tangent-sorted 8-ray
+groups, 128-lane padding, the group/pool schedules, slabs, the pool
+gather and its capacity flag) is not ported: each CUDA block gathers its
+own rows.  Outputs are in input ray order.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from jurassic_tpu.constants import NA, P0, TAU_OPAQUE
-from jurassic_tpu.tables import LOG2_RATIO_U
-
+from ..constants import NA, P0, TAU_OPAQUE
 from ..geometry import LosData
+from ..tables import LOG2_RATIO_U
+from .table_pack import BIG, N_AUG, TableTables
 from .turbo_fit import N_TURBO_AUX, TurboTables
 
 N_SEG = 8           # fixed per-segment stream fields (see pack_segments)
 N_CC = 12           # packed continuum coefficient rows
-KERNEL_DEG = 8      # Chebyshev degree the CUDA kernel is compiled for
+KERNEL_DEG = 8      # Chebyshev degree the turbo kernel is compiled for
 KERNEL_MAX_GASES = 32
 
-LAUNCHES = 0        # launches of the CUDA kernel (rt_fused_turbo)
+LAUNCHES = 0        # launches of the turbo CUDA kernel (rt_fused_turbo)
+LAUNCHES_TABLE = 0  # launches of the table CUDA kernel (rt_fused_table)
 
 
 def pack_continua(cc, window, nd: int, nw: int = 0,
@@ -247,103 +258,242 @@ def _source_rows(sr, t):
 
 
 # ---------------------------------------------------------------------------
-# The plain PyTorch version
+# The plain PyTorch versions
+
+REF_BLOCK_BYTES = 256 << 20   # gathered corner rows per ray chunk
+
+
+def _row_lookup(row, l2u0, nk2, target, u_seg):
+    """One (p,T) corner of the exact tables (``row_lookup``,
+    ega_fused.py:980-1002), written out literally: the count and the
+    masked max/min of the TPU kernel, not an index.  row [..., K, D] (K
+    on the second-to-last axis), the rest [..., D]."""
+    R6 = float(np.float32(LOG2_RATIO_U))
+    RATIO = float(np.float32(2.0 ** LOG2_RATIO_U))
+    K = row.shape[-2]
+    iota = torch.arange(K, device=row.device).view(K, 1)
+
+    def bracket(i):
+        m = iota <= i.unsqueeze(-2)
+        lo = torch.where(m, row, -BIG).amax(dim=-2)
+        hi = torch.where(m, BIG, row).amin(dim=-2)
+        return lo, hi
+
+    cnt = (row <= target.unsqueeze(-2)).sum(dim=-2)
+    i = torch.minimum((cnt - 1).clamp_min(0), nk2)
+    e0, e1 = bracket(i)
+    u0 = torch.exp2(l2u0 + i.to(torch.float32) * R6)
+    u_c = _lipg(e0, u0, e1, u0 * RATIO, target)
+    u_new = u_c + u_seg
+    kf = (torch.log2(torch.clamp(u_new, min=1e-37)) - l2u0) / R6
+    kf = torch.clamp(kf, 0.0, float(K))
+    ki = torch.minimum(kf.to(torch.int64), nk2)
+    e_lo, e_hi = bracket(ki)
+    u_lo = torch.exp2(l2u0 + ki.to(torch.float32) * R6)
+    return _c01(_lipg(u_lo, e_lo, u_lo * RATIO, e_hi, u_new))
+
+
+def _rt_fused_ref(rows, rows_tpv, corner, axes, sr, chan_mask, cc_rows,
+                  los: LosData, flags, ig_co2: int, ig_h2o: int,
+                  want_taint: bool):
+    """The segment loop both plain versions share: continua, the four
+    corners of every gas through ``corner(blk, target, u_seg)`` (blk
+    [R, G, 4, Q, D] the gathered table rows -> eps [R, G, 4, D]),
+    bilinear in T then p, the opacity cut, the source and the rad/tau
+    recursion.  ``rows`` is the table [G, P*T, Q, D], ``rows_tpv`` the
+    row offsets of (temperature, pressure, validity), ``axes`` the
+    channel-uniform (p_ax, t_ax, np_u, nt_u).  Rays run in chunks so
+    that the gathered rows stay near REF_BLOCK_BYTES.  Returns
+    (rad, tau, taint | None)."""
+    seg = pack_segments(los, ig_co2, ig_h2o)
+    idx = corner_indices(*axes, los.p, los.t)
+    G, PT, Q, D = rows.shape
+    R, S, F = seg.shape
+    W = F - N_SEG - G
+    dev = seg.device
+    ROW_T, ROW_P, ROW_VALID = rows_tpv
+    flat = rows.reshape(G * PT, Q, D)
+    sr = sr.to(torch.float32)
+    goff = (torch.arange(G, device=dev) * PT).view(1, G, 1)
+    corner_off = torch.tensor([0, 1, 0, 1], device=dev)
+    pair_sel = torch.tensor([0, 0, 1, 1], device=dev)
+    f32 = torch.float32
+
+    rad_out = torch.zeros((R, D), dtype=f32, device=dev)
+    tau_out = torch.ones((R, D), dtype=f32, device=dev)
+    taint_out = torch.zeros((R, D), dtype=torch.bool, device=dev)
+    chunk = max(1, REF_BLOCK_BYTES // max(G * 4 * Q * D * 4, 1))
+    for r0 in range(0, R, chunk):
+        sl = slice(r0, min(r0 + chunk, R))
+        seg_c, idx_c = seg[sl], idx[sl]
+        Rc = seg_c.shape[0]
+        rad = torch.zeros((Rc, D), dtype=f32, device=dev)
+        tau = torch.ones((Rc, D), dtype=f32, device=dev)
+        taint = torch.zeros((Rc, D), dtype=torch.bool, device=dev)
+        tau_path = torch.ones((Rc, G, D), dtype=f32, device=dev)
+        n_steps = int(los.np_[sl].max().clamp(0, S))
+        for s in range(n_steps):
+            f = seg_c[:, s, :]
+            valid_s = f[:, 0:1] > 0.0                          # [R, 1]
+            p_s, t_s, ds_s = f[:, 1:2], f[:, 2:3], f[:, 3:4]
+            q_h2o, u_co2, u_h2o = f[:, 4:5], f[:, 5:6], f[:, 6:7]
+
+            kw = torch.zeros((Rc, D), dtype=f32, device=dev)
+            for w in range(W):
+                kw = kw + f[:, N_SEG + w:N_SEG + w + 1] * cc_rows[N_CC + w]
+            bds = _continua_bds(p_s, t_s, ds_s, q_h2o, u_co2, u_h2o, kw,
+                                cc_rows, flags)
+
+            # EGA, all gases at once: rows [R, G, 4] of the four corners
+            tp = tau_path
+            target = 1.0 - tp                                  # [R, G, D]
+            u_seg = f[:, N_SEG + W:N_SEG + W + G].unsqueeze(-1)
+            sel = idx_c[:, s][:, :, pair_sel] + corner_off + goff
+            blk = flat[sel]                                # [R, G, 4, Q, D]
+            eps4 = corner(blk, target, u_seg)              # [R, G, 4, D]
+            vld = blk[:, :, :, ROW_VALID, :]
+            okl = chan_mask * vld[:, :, 0] * vld[:, :, 1] * vld[:, :, 2] \
+                * vld[:, :, 3]
+            t4 = blk[:, :, :, ROW_T, :]
+            p0, p1 = blk[:, :, 0, ROW_P, :], blk[:, :, 2, ROW_P, :]
+            t_s3, p_s3 = t_s.unsqueeze(1), p_s.unsqueeze(1)
+            eps_p0 = _c01(_lipg(t4[:, :, 0], eps4[:, :, 0], t4[:, :, 1],
+                                eps4[:, :, 1], t_s3))
+            eps_p1 = _c01(_lipg(t4[:, :, 2], eps4[:, :, 2], t4[:, :, 3],
+                                eps4[:, :, 3], t_s3))
+            eps_t = _c01(_lipg(p0, eps_p0, p1, eps_p1, p_s3))
+            opaque = tp < TAU_OPAQUE
+            factor = (1.0 - eps_t) / torch.where(opaque, 1.0, tp)
+            factor = torch.where(okl > 0, factor, 1.0)
+            factor = torch.where(opaque, 0.0, factor)
+            tau_gas = factor[:, 0]
+            for g in range(1, G):
+                tau_gas = tau_gas * factor[:, g]
+            tau_path = torch.where(valid_s.unsqueeze(1), tp * factor, tp)
+            if want_taint:
+                # a bad-fit row (validity 2) at any of the four corners,
+                # on an active and not yet opaque segment (the pool
+                # kernel's ``hit``, ega_fused.py:1305-1310, 1375-1379)
+                hit = valid_s.unsqueeze(1) & ~opaque \
+                    & (vld.amax(dim=2) > 1.5)
+                taint = taint | hit.any(dim=1)
+
+            src = _source_rows(sr, f[:, 2])
+            eps_tot = 1.0 - tau_gas * torch.exp(-bds)
+            upd = valid_s & (tau_gas > 0.0)
+            rad = torch.where(upd, rad + src * eps_tot * tau, rad)
+            tau = torch.where(upd, tau * (1.0 - eps_tot), tau)
+        rad_out[sl], tau_out[sl], taint_out[sl] = rad, tau, taint
+    return rad_out, tau_out, (taint_out if want_taint else None)
+
+
+def _axes(tables):
+    return tables.p_ax, tables.t_ax, tables.np_u, tables.nt_u
+
 
 def rt_fused_turbo_ref(tables: TurboTables, cc_rows, los: LosData, flags,
                        ig_co2: int, ig_h2o: int):
-    """(rad, tau) [R, D] f32 of the fused turbo EGA pass, in plain
-    PyTorch on the device of ``los``.
+    """(rad, tau, taint) of the fused turbo EGA pass, in plain PyTorch on
+    the device of ``los``: rad, tau [R, D] f32; taint [R, D] bool marks
+    the lanes that consumed a bad-fit row, None when the tables have
+    none (``n_bad == 0``).
 
     Vectorised over [rays, gases, corners, channels]; the LOS segments
     run in a Python loop.  A ray's segments beyond its ``np_`` are
     masked no-ops (their ``valid`` is 0), as in the kernel."""
-    seg = pack_segments(los, ig_co2, ig_h2o)
-    idx = corner_indices(tables.p_ax, tables.t_ax, tables.np_u,
-                         tables.nt_u, los.p, los.t)
-    G, PT, Q, D = tables.coef.shape
-    R, S, F = seg.shape
-    W = F - N_SEG - G
-    dev = seg.device
     J_f, J_i = tables.deg_f + 1, tables.deg_i + 1
     AUX = J_f + J_i
-    ROW_T, ROW_P, ROW_VALID = AUX + 9, AUX + 10, AUX + 11
-    coef = tables.coef.reshape(G * PT, Q, D)
-    cm = tables.chan_mask
-    sr = tables.sr.to(torch.float32)
-    goff = (torch.arange(G, device=dev) * PT).view(1, G, 1)
-    corner_off = torch.tensor([0, 1, 0, 1], device=dev)
-    pair_sel = torch.tensor([0, 0, 1, 1], device=dev)
 
-    rad = torch.zeros((R, D), dtype=torch.float32, device=dev)
-    tau = torch.ones((R, D), dtype=torch.float32, device=dev)
-    tau_path = torch.ones((R, G, D), dtype=torch.float32, device=dev)
-    n_steps = int(los.np_.max().clamp(0, S)) if R else 0
-    for s in range(n_steps):
-        f = seg[:, s, :]
-        valid_s = f[:, 0:1] > 0.0                              # [R, 1]
-        p_s, t_s, ds_s = f[:, 1:2], f[:, 2:3], f[:, 3:4]
-        q_h2o, u_co2, u_h2o = f[:, 4:5], f[:, 5:6], f[:, 6:7]
+    def corner(blk, target, u_seg):
+        return _turbo_corner(lambda off: blk[:, :, :, off, :], J_f, J_i,
+                             target.unsqueeze(2),
+                             _eta_of(target).unsqueeze(2),
+                             u_seg.unsqueeze(2))
+    return _rt_fused_ref(tables.coef, (AUX + 9, AUX + 10, AUX + 11), corner,
+                         _axes(tables), tables.sr, tables.chan_mask, cc_rows,
+                         los, flags, ig_co2, ig_h2o, tables.n_bad > 0)
 
-        kw = torch.zeros((R, D), dtype=torch.float32, device=dev)
-        for w in range(W):
-            kw = kw + f[:, N_SEG + w:N_SEG + w + 1] * cc_rows[N_CC + w]
-        bds = _continua_bds(p_s, t_s, ds_s, q_h2o, u_co2, u_h2o, kw,
-                            cc_rows, flags)
 
-        # EGA, all gases at once: rows [R, G, 4] of the four corners
-        tp = tau_path
-        target = 1.0 - tp                                      # [R, G, D]
-        u_seg = f[:, N_SEG + W:N_SEG + W + G].unsqueeze(-1)   # [R, G, 1]
-        eta_t = _eta_of(target)
-        rows = idx[:, s][:, :, pair_sel] + corner_off + goff    # [R, G, 4]
-        blk = coef[rows]                                   # [R, G, 4, Q, D]
-        eps4 = _turbo_corner(lambda off: blk[:, :, :, off, :], J_f, J_i,
-                             target.unsqueeze(2), eta_t.unsqueeze(2),
-                             u_seg.unsqueeze(2))           # [R, G, 4, D]
-        vld = blk[:, :, :, ROW_VALID, :]
-        okl = cm * vld[:, :, 0] * vld[:, :, 1] * vld[:, :, 2] * vld[:, :, 3]
-        t4 = blk[:, :, :, ROW_T, :]
-        p0, p1 = blk[:, :, 0, ROW_P, :], blk[:, :, 2, ROW_P, :]
-        t_s3, p_s3 = t_s.unsqueeze(1), p_s.unsqueeze(1)
-        eps_p0 = _c01(_lipg(t4[:, :, 0], eps4[:, :, 0], t4[:, :, 1],
-                            eps4[:, :, 1], t_s3))
-        eps_p1 = _c01(_lipg(t4[:, :, 2], eps4[:, :, 2], t4[:, :, 3],
-                            eps4[:, :, 3], t_s3))
-        eps_t = _c01(_lipg(p0, eps_p0, p1, eps_p1, p_s3))
-        opaque = tp < TAU_OPAQUE
-        factor = (1.0 - eps_t) / torch.where(opaque, 1.0, tp)
-        factor = torch.where(okl > 0, factor, 1.0)
-        factor = torch.where(opaque, 0.0, factor)
-        tau_gas = factor[:, 0]
-        for g in range(1, G):
-            tau_gas = tau_gas * factor[:, g]
-        tau_path = torch.where(valid_s.unsqueeze(1), tp * factor, tp)
+def rt_fused_table_ref(tables: TableTables, cc_rows, los: LosData, flags,
+                       ig_co2: int, ig_h2o: int):
+    """(rad, tau) [R, D] f32 of the fused table-mode EGA pass, in plain
+    PyTorch on the device of ``los``: the loop of
+    :func:`rt_fused_turbo_ref` with the exact row lookup at each
+    corner."""
+    K = tables.k_rows
 
-        src = _source_rows(sr, f[:, 2])
-        eps_tot = 1.0 - tau_gas * torch.exp(-bds)
-        upd = valid_s & (tau_gas > 0.0)
-        rad = torch.where(upd, rad + src * eps_tot * tau, rad)
-        tau = torch.where(upd, tau * (1.0 - eps_tot), tau)
+    def corner(blk, target, u_seg):
+        return _row_lookup(blk[:, :, :, :K, :], blk[:, :, :, K, :],
+                           blk[:, :, :, K + 4, :].to(torch.int64),
+                           target.unsqueeze(2), u_seg.unsqueeze(2))
+    rad, tau, _ = _rt_fused_ref(
+        tables.eps_aug, (K + 1, K + 2, K + 3), corner, _axes(tables),
+        tables.sr, tables.chan_mask, cc_rows, los, flags, ig_co2, ig_h2o,
+        False)
     return rad, tau
 
 
 # ---------------------------------------------------------------------------
-# The dispatching wrapper and the CUDA launch
+# The dispatching wrappers and the CUDA launches
+
+def _on_cuda(name: str, los: LosData) -> bool:
+    """False for CPU tensors (plain version), True for CUDA tensors
+    (kernel); anything else is an error."""
+    dev = los.p.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
 
 def rt_fused_turbo(tables: TurboTables, cc_rows, los: LosData, flags,
                    ig_co2: int, ig_h2o: int):
-    """(rad, tau) [R, D] f32 of the fused turbo EGA pass.
+    """(rad, tau, taint) of the fused turbo EGA pass; taint is None when
+    the tables have no bad-fit rows.
 
     CPU tensors go through :func:`rt_fused_turbo_ref`; CUDA tensors
     launch the hand-written kernel (``csrc/ega_fused_turbo.cu``) or
     raise."""
-    dev = los.p.device
-    if dev.type == "cpu":
+    global LAUNCHES
+    if not _on_cuda("rt_fused_turbo", los):
         return rt_fused_turbo_ref(tables, cc_rows, los, flags, ig_co2,
                                   ig_h2o)
-    if dev.type != "cuda":
-        raise ValueError(f"rt_fused_turbo: unsupported device {dev}")
-    return _launch(tables, cc_rows, los, flags, ig_co2, ig_h2o)
+    if tables.deg_f != KERNEL_DEG or tables.deg_i != KERNEL_DEG:
+        raise ValueError(f"the CUDA kernel is compiled for Chebyshev degree "
+                         f"{KERNEL_DEG}, got ({tables.deg_f}, "
+                         f"{tables.deg_i})")
+    Q = tables.coef.shape[2]
+    if Q != 2 * (KERNEL_DEG + 1) + N_TURBO_AUX:
+        raise ValueError(f"coef has {Q} rows per cell")
+    rad, tau, taint, launched = _launch(
+        "jt_ega_fused_turbo", tables.coef, tables, cc_rows, los, flags,
+        ig_co2, ig_h2o, tables.n_bad > 0, (Q, tables.deg_f, tables.deg_i))
+    LAUNCHES += launched
+    return rad, tau, (None if taint is None else taint > 0.5)
+
+
+def rt_fused_table(tables: TableTables, cc_rows, los: LosData, flags,
+                   ig_co2: int, ig_h2o: int):
+    """(rad, tau) [R, D] f32 of the fused table-mode EGA pass.
+
+    CPU tensors go through :func:`rt_fused_table_ref`; CUDA tensors
+    launch the hand-written kernel (``csrc/ega_fused_table.cu``) or
+    raise.  The kernel binary-searches each emissivity row when
+    ``tables.monotone`` (every row non-decreasing, checked at the table
+    build) and otherwise scans it with the literal count/max/min of the
+    plain version."""
+    global LAUNCHES_TABLE
+    if not _on_cuda("rt_fused_table", los):
+        return rt_fused_table_ref(tables, cc_rows, los, flags, ig_co2,
+                                  ig_h2o)
+    K = tables.k_rows
+    if tables.eps_aug.shape[2] != K + N_AUG:
+        raise ValueError(f"eps_aug has {tables.eps_aug.shape[2]} rows per "
+                         f"cell, expected {K + N_AUG}")
+    rad, tau, _, launched = _launch(
+        "jt_ega_fused_table", tables.eps_aug, tables, cc_rows, los, flags,
+        ig_co2, ig_h2o, False, (K, int(tables.monotone)))
+    LAUNCHES_TABLE += launched
+    return rad, tau
 
 
 def _check(name, x, dtype, shape, dev):
@@ -360,26 +510,26 @@ def _check(name, x, dtype, shape, dev):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(tables: TurboTables, cc_rows, los: LosData, flags,
-            ig_co2: int, ig_h2o: int):
-    global LAUNCHES
+def _launch(entry: str, rows, tables, cc_rows, los: LosData, flags,
+            ig_co2: int, ig_h2o: int, want_taint: bool, extra: tuple):
+    """Check the tensors, allocate the outputs and launch C entry point
+    ``entry`` (``csrc/ega_common.cuh`` has the argument order) on the
+    current stream.  ``rows`` is the kernel's table [G, P*T, Q, D],
+    ``extra`` its own integer arguments.  Returns (rad, tau, taint f32 |
+    None, launches made: 0 for an empty batch, else 1)."""
     import ctypes
 
     from ._build import load_library
 
     dev = los.p.device
     if los.p.dtype != torch.float32 or los.t.dtype != torch.float32:
-        raise ValueError("the CUDA kernel brackets table corners in float32:"
-                         " trace the LOS in float32 on the card")
-    if tables.deg_f != KERNEL_DEG or tables.deg_i != KERNEL_DEG:
-        raise ValueError(f"the CUDA kernel is compiled for Chebyshev degree "
-                         f"{KERNEL_DEG}, got ({tables.deg_f}, "
-                         f"{tables.deg_i})")
-    G, PT, Q, D = tables.coef.shape
-    if Q != 2 * (KERNEL_DEG + 1) + N_TURBO_AUX:
-        raise ValueError(f"coef has {Q} rows per cell")
+        raise ValueError("the CUDA kernels bracket table corners in "
+                         "float32: trace the LOS in float32 on the card")
+    if rows.dim() != 4:
+        raise ValueError(f"table has shape {tuple(rows.shape)}")
+    G, PT, Q, D = rows.shape
     if not 1 <= G <= KERNEL_MAX_GASES:
-        raise ValueError(f"the CUDA kernel takes 1..{KERNEL_MAX_GASES} "
+        raise ValueError(f"the CUDA kernels take 1..{KERNEL_MAX_GASES} "
                          f"gases, got {G}")
     P, T = tables.t_ax.shape[1:]
     if P < 2 or T < 2 or P * T != PT:
@@ -396,7 +546,7 @@ def _launch(tables: TurboTables, cc_rows, los: LosData, flags,
     t_ax = tables.t_ax.to(dev, torch.float32).contiguous()
     np_u = tables.np_u.to(dev, torch.int32).contiguous()
     nt_u = tables.nt_u.to(dev, torch.int32).contiguous()
-    args = (("coef", tables.coef, torch.float32, (G, PT, Q, D)),
+    args = (("table rows", rows, torch.float32, (G, PT, Q, D)),
             ("sr", tables.sr, torch.float32, (n_src, D)),
             ("chan_mask", tables.chan_mask, torch.float32, (G, D)),
             ("cc_rows", cc_rows, torch.float32, (N_CC + W, D)),
@@ -409,21 +559,21 @@ def _launch(tables: TurboTables, cc_rows, los: LosData, flags,
         _check(name, x, dtype, shape, dev)
     rad = torch.empty((R, D), dtype=torch.float32, device=dev)
     tau = torch.empty((R, D), dtype=torch.float32, device=dev)
+    taint = torch.empty((R, D), dtype=torch.float32, device=dev) \
+        if want_taint else None
     if R == 0 or D == 0:
-        return rad, tau
+        return rad, tau, taint, 0
     bits = sum(int(bool(f)) << i for i, f in enumerate(flags))
     lib = load_library()
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.jt_ega_fused_turbo(
-            ptr(seg), ptr(np_), ptr(tables.coef), ptr(tables.sr),
+        rc = getattr(lib, entry)(
+            ptr(seg), ptr(np_), ptr(rows), ptr(tables.sr),
             ptr(tables.chan_mask), ptr(cc_rows), ptr(p_ax), ptr(t_ax),
-            ptr(np_u), ptr(nt_u), ptr(rad), ptr(tau),
-            R, S, F, W, G, P, T, Q, D, n_src, tables.deg_f, tables.deg_i,
-            bits, ctypes.c_void_p(stream))
+            ptr(np_u), ptr(nt_u), ptr(rad), ptr(tau), ptr(taint),
+            R, S, F, W, G, P, T, D, n_src, bits, *extra,
+            ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"ega_fused_turbo kernel launch failed "
-                           f"(cudaError {rc})")
-    LAUNCHES += 1
-    return rad, tau
+        raise RuntimeError(f"{entry}: kernel launch failed (cudaError {rc})")
+    return rad, tau, taint, 1

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jurassic_tpu.tables import LOG2_RATIO_U, FastTables
+from ..tables import LOG2_RATIO_U, FastTables
 
 N_TURBO_AUX = 21   # 14 base rows + 7 precomputed-slope rows (A+14..20)
 DEG = 8            # Chebyshev degree of the forward and inverse fits

@@ -1,5 +1,5 @@
-"""Synthetic limb workloads of the port, built from the JAX package's
-framework-free generators (``jurassic_tpu.models``).
+"""Synthetic limb workloads of the port, built from its own copies of the
+NumPy generators (``models.synthetic``, ``models.geometry_gen``).
 
 ``flagship`` is the configuration ``bench.py:45-64`` times: synthetic
 40 x 30 x 224 tables, 4 gases (CO2, H2O, O3, F11) with all four
@@ -10,10 +10,9 @@ RAYDS = 10, RAYDZ = 0.5 and the NLOS = 400 step budget.
 """
 from __future__ import annotations
 
-from jurassic_tpu.models.geometry_gen import limb_geometry
-from jurassic_tpu.models.synthetic import (limb_workload, synthetic_atm,
-                                           synthetic_ctl,
-                                           synthetic_fast_tables)
+from .models.geometry_gen import limb_geometry
+from .models.synthetic import (limb_workload, synthetic_atm, synthetic_ctl,
+                               synthetic_fast_tables)
 
 
 def flagship():

@@ -22,13 +22,15 @@ from jurassic_torch.geometry import los_from_numpy
 from jurassic_torch.ops import ega_fused as tef
 from jurassic_torch.ops.continua import precompute_continua
 from jurassic_torch.ops.turbo_fit import turbo_tables_from_jax
-from jurassic_torch.workloads import small_limb
+
+from test_torch_host_copies import small_limb_pair
 
 
 @pytest.fixture(scope="module")
 def setup():
     """ng=4, nd=9, nlos=48, 6 limb rays, all four continua on."""
-    ctl, ft, atm, obs = small_limb(ng=4, nd=9, nr=6)
+    (ctl, ft, atm, obs), (ctl_t, _ft, _a, _o) = small_limb_pair(
+        ng=4, nd=9, nr=6)
     ctl.kernel = "turbo"
     m = JaxForwardModel(ctl, fast_tables=ft)
     assert m.pallas_tbl.mode == "turbo"
@@ -38,9 +40,9 @@ def setup():
         *(np.asarray(getattr(pt, f)) for f in
           ("eps_aug", "sr", "chan_mask", "p_ax", "t_ax", "np_u", "nt_u")),
         d_true=pt.d_true, deg_f=pt.deg_f, deg_i=pt.deg_i, n_bad=pt.n_bad)
-    cc = tef.pack_continua(precompute_continua(ctl), np.asarray(ctl.window),
-                           ctl.nd, ctl.nw)
-    return ctl, m, los, los_from_numpy(los), tt, cc
+    cc = tef.pack_continua(precompute_continua(ctl_t),
+                           np.asarray(ctl_t.window), ctl_t.nd, ctl_t.nw)
+    return ctl_t, m, los, los_from_numpy(los), tt, cc
 
 
 def test_pack_continua_matches_jax(setup):
@@ -78,7 +80,9 @@ def test_plain_version_matches_pool_kernel(setup, flags):
                                    m.ig_co2, m.ig_h2o, interpret=True,
                                    variant="pool")
     rad_j, tau_j = np.asarray(rad_j), np.asarray(tau_j)
-    rad, tau = tef.rt_fused_turbo_ref(tt, cc, lt, flags, m.ig_co2, m.ig_h2o)
+    rad, tau, taint = tef.rt_fused_turbo_ref(tt, cc, lt, flags, m.ig_co2,
+                                             m.ig_h2o)
+    assert taint is None            # no bad-fit rows in these tables
     assert rad.dtype == torch.float32 and rad.shape == rad_j.shape
     scale = np.abs(rad_j).max()
     assert scale > 0
@@ -91,7 +95,7 @@ def test_wrapper_takes_plain_version_on_cpu(setup):
     _ctl, m, _los, lt, tt, cc = setup
     n0 = tef.LAUNCHES
     args = (tt, cc, lt, m.flags, m.ig_co2, m.ig_h2o)
-    rad0, tau0 = tef.rt_fused_turbo(*args)
-    rad1, tau1 = tef.rt_fused_turbo_ref(*args)
+    rad0, tau0, _ = tef.rt_fused_turbo(*args)
+    rad1, tau1, _ = tef.rt_fused_turbo_ref(*args)
     assert tef.LAUNCHES == n0
     assert torch.equal(rad0, rad1) and torch.equal(tau0, tau1)

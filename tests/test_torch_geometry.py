@@ -22,11 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+import jurassic_tpu.config as jcfg
+import jurassic_tpu.io_tab as jio
 from jurassic_tpu import geometry as jg
-from jurassic_tpu.config import read_ctl
-from jurassic_tpu.io_tab import read_atm, read_obs
 from jurassic_torch import geometry as tg
-from jurassic_torch.workloads import small_limb
+
+from test_torch_host_copies import golden_case, small_limb_pair
 
 GOLD = Path(__file__).parent / "goldens"
 GEO = ("obsz", "obslon", "obslat", "vpz", "vplon", "vplat")
@@ -34,27 +35,30 @@ ANGLES = ("lon", "lat", "tplon", "tplat")
 
 
 def _case(case):
+    """((ctl, atm, obs) of the JAX package, the same of the port): each
+    side gets its own classes, read by its own readers or carried across
+    as NumPy copies."""
     if case == "synthetic":
-        ctl, _ft, atm, obs = small_limb(ng=4, nd=9, nr=6)
-        ctl.hydz = 0.0          # exercise the hydrostatic rebuild too
-        return ctl, atm, obs
-    d = GOLD / case
-    ctl = read_ctl(["formod", str(next(d.glob("*.ctl"))), "o", "a", "r"],
-                   verbose=False)
-    return ctl, read_atm(d / "atm.tab", ctl), read_obs(d / "obs.tab", ctl)
+        (cj, _f, aj, oj), (ct, _ft, at, ot) = small_limb_pair(ng=4, nd=9,
+                                                              nr=6)
+        cj.hydz = ct.hydz = 0.0   # exercise the hydrostatic rebuild too
+        return (cj, aj, oj), (ct, at, ot)
+    cj, oj, aj = golden_case(case, jcfg, jio)
+    ct, ot, at = golden_case(case)
+    return (cj, aj, oj), (ct, at, ot)
 
 
 def _traced(case):
-    ctl, atm, obs = _case(case)
-    a_j, a_t = atm.copy(), atm.copy()
+    (ctl, a_j, obs), (ctl_t, a_t, obs_t) = _case(case)
     jg.hydrostatic_atm(ctl, a_j)
-    tg.hydrostatic_atm(ctl, a_t)
+    tg.hydrostatic_atm(ctl_t, a_t)
     prof = jg.build_ray_profiles(ctl, a_j, obs, jnp.float64)
     los_j = jg.trace_rays(ctl, prof,
                           {k: jnp.asarray(getattr(obs, k)) for k in GEO},
                           jnp.float64)
-    prof_t = tg.build_ray_profiles(ctl, a_t, obs, torch.float64)
-    los_t = tg.trace_rays(ctl, prof_t, {k: getattr(obs, k) for k in GEO})
+    prof_t = tg.build_ray_profiles(ctl_t, a_t, obs_t, torch.float64)
+    los_t = tg.trace_rays(ctl_t, prof_t,
+                          {k: getattr(obs_t, k) for k in GEO})
     return a_j, a_t, los_j, los_t
 
 

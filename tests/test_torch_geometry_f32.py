@@ -24,10 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+import jurassic_tpu.config as jcfg
+import jurassic_tpu.io_tab as jio
 from jurassic_tpu import geometry as jg
-from jurassic_tpu.config import read_ctl
-from jurassic_tpu.io_tab import read_atm, read_obs
 from jurassic_torch import geometry as tg
+
+from test_torch_host_copies import golden_case
 
 GOLD = Path(__file__).parent / "goldens"
 GEO = ("obsz", "obslon", "obslat", "vpz", "vplon", "vplat")
@@ -40,18 +42,17 @@ MAX_NONFINITE = {"limb": 0, "nadir": 8, "ega": 0}
 
 def _tangent_points(case):
     d = GOLD / case
-    ctl = read_ctl(["formod", str(next(d.glob("*.ctl"))), "o", "a", "r"],
-                   verbose=False)
-    atm, obs = read_atm(d / "atm.tab", ctl), read_obs(d / "obs.tab", ctl)
-    a_j, a_t = atm.copy(), atm.copy()
+    ctl, obs, a_j = golden_case(case, jcfg, jio)
+    ctl_t, obs_t, a_t = golden_case(case)
     jg.hydrostatic_atm(ctl, a_j)
-    tg.hydrostatic_atm(ctl, a_t)
+    tg.hydrostatic_atm(ctl_t, a_t)
     prof = jg.build_ray_profiles(ctl, a_j, obs, jnp.float32)
     los_j = jg.trace_rays(
         ctl, prof, {k: jnp.asarray(getattr(obs, k), jnp.float32)
                     for k in GEO}, jnp.float32)
-    prof_t = tg.build_ray_profiles(ctl, a_t, obs, torch.float32)
-    los_t = tg.trace_rays(ctl, prof_t, {k: getattr(obs, k) for k in GEO})
+    prof_t = tg.build_ray_profiles(ctl_t, a_t, obs_t, torch.float32)
+    los_t = tg.trace_rays(ctl_t, prof_t,
+                          {k: getattr(obs_t, k) for k in GEO})
     tp_j = np.stack([np.asarray(getattr(los_j, f)) for f in TP], axis=1)
     tp_t = np.stack([getattr(los_t, f).numpy() for f in TP], axis=1)
     assert tp_j.dtype == tp_t.dtype == np.float32

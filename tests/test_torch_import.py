@@ -1,5 +1,6 @@
-"""The port's packaging rules: it never imports JAX, its device policy
-follows USEGPU, and its kernel build is keyed by its sources.
+"""The port's packaging rules: it imports neither JAX nor the JAX
+package, its device policy follows USEGPU, and its kernel build is keyed
+by its sources.
 
 The import check runs in a subprocess: this test process already holds
 jax (``tests/conftest.py`` imports it).
@@ -16,15 +17,24 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_import_leaves_jax_out():
+    """Importing every module of the port (and building a workload)
+    loads no jax* and no jurassic_tpu* module.  In a subprocess: this
+    process already holds both."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "jurassic_torch").rglob("*.py")
+        if "_build" not in p.parts)
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    assert "jurassic_torch.tools.peak" in mods and len(mods) >= 20
     code = (
-        "import sys\n"
-        "import jurassic_torch, jurassic_torch.forward, "
-        "jurassic_torch.ops.ega_fused, jurassic_torch.cli.formod, "
-        "jurassic_torch.workloads, jurassic_torch.ops._build\n"
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from jurassic_torch.workloads import small_limb\n"
+        "small_limb(ng=2, nd=3, nr=2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib') or m in ('jurassic_tpu.geometry', "
-        "'jurassic_tpu.forward', 'jurassic_tpu.ops.continua', "
-        "'jurassic_tpu.ops.pallas'))\n"
+        "('jax', 'jaxlib', 'jurassic_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -67,5 +77,15 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     assert _build.library_path() == name0
     cu = next(src.glob("*.cu"))
     cu.write_text(cu.read_text() + "\n// edited\n")
-    assert _build.library_path() != name0
+    name1 = _build.library_path()
+    assert name1 != name0
+    # the shared header is part of the key too
+    cuh = src / "ega_common.cuh"
+    assert cuh in _build.sources()
+    cuh.write_text(cuh.read_text() + "\n// edited\n")
+    assert _build.library_path() not in (name0, name1)
     assert _build.build_log() == ""
+    # every entry point has its argument types in one table
+    assert set(_build.ENTRY_POINTS) == {
+        "jt_ega_fused_turbo", "jt_ega_fused_table", "jt_peak_fma",
+        "jt_peak_sfu", "jt_peak_copy"}

@@ -20,6 +20,7 @@ from jurassic_torch.ops.turbo_fit import (N_TURBO_AUX, build_turbo_tables,
                                           turbo_tables_from_jax)
 
 from test_torch_cli import _roughen
+from test_torch_host_copies import port_fast_tables
 
 GOLD = Path(__file__).parent / "goldens"
 FIELDS = ("coef", "sr", "chan_mask", "p_ax", "t_ax", "np_u", "nt_u")
@@ -51,7 +52,7 @@ def _same_bytes(a, b):
 def test_turbo_tables_match_jax_bytewise(case):
     ft = _fast_tables(case)
     pt, st_j = jax_build(ft)
-    tt, st_t = build_turbo_tables(ft)
+    tt, st_t = build_turbo_tables(port_fast_tables(ft))
     D = pt.d_true
     Q = pt.deg_f + 1 + pt.deg_i + 1 + N_TURBO_AUX
     eps_aug = np.asarray(pt.eps_aug)
@@ -88,7 +89,7 @@ def test_turbo_cache_roundtrip(tmp_path):
     """The content-keyed fit cache returns the tables it stored."""
     from jurassic_torch.ops.turbo_fit import build_turbo_tables_cached
 
-    ft = _fast_tables("synthetic")
+    ft = port_fast_tables(_fast_tables("synthetic"))
     tt0, st0 = build_turbo_tables(ft)
     tt1, st1 = build_turbo_tables_cached(ft, tmp_path)
     assert len(list(tmp_path.glob("turbo_*.npz"))) == 1

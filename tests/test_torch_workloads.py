@@ -1,18 +1,16 @@
 """The port's flagship workload is the one ``bench.py`` times: the same
-control parameters, tables, atmosphere and limb scan, bit for bit."""
-import dataclasses
-
+control parameters, tables, atmosphere and limb scan, bit for bit, field
+by field across the two packages' class families."""
 import numpy as np
 import pytest
 
 import bench
+import jurassic_torch.config as tcfg
+import jurassic_torch.io_tab as tio
+import jurassic_torch.tables as ttab
 from jurassic_torch.workloads import flagship
 
-
-def _fields(obj):
-    if dataclasses.is_dataclass(obj):
-        return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
-    return obj._asdict()
+from test_torch_host_copies import fields as _fields
 
 
 @pytest.fixture(scope="module")
@@ -23,6 +21,8 @@ def both():
 @pytest.mark.parametrize("part", ["ctl", "fast_tables", "atm", "obs"])
 def test_flagship_is_bench_workload(both, part):
     i = ("ctl", "fast_tables", "atm", "obs").index(part)
+    cls = (tcfg.Ctl, ttab.FastTables, tio.Atm, tio.Obs)[i]
+    assert type(both[0][i]) is cls and type(both[1][i]) is not cls
     got, ref = _fields(both[0][i]), _fields(both[1][i])
     assert got.keys() == ref.keys()
     for k, v in ref.items():
