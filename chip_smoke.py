@@ -19,11 +19,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4.  turbo kernel vs plain version -- the CUDA kernel and
     ``rt_fused_turbo_ref`` on the same CUDA tensors: the flagship shapes
     on a LOS the port traces on the card (1084 rays, 400 segments, 4
-    gases, 100 channels, all continua) and a small odd shape (9
-    channels); max errors, the kernel's time (CUDA events, median) and
-    the plain version's;
+    gases, 100 channels, all continua), a small odd shape (9 channels)
+    and two scrambled batches (coarse steps on 8 x 5 tables, so that the
+    bracketed cells change at most segments; rays in random order, some
+    empty and some with the full segment budget; 4 gases and 9 gases, the
+    generic form), on which what the kernel shares between the rays of a
+    block does not hold; max errors, the kernel's time (CUDA events,
+    median) and the plain version's;
 5.  table kernel vs plain version -- the same for ``rt_fused_table`` on
-    the exact log-uniform tables (40 x 30 cells x 224 rows);
+    the exact log-uniform tables (40 x 30 cells x 224 rows); on the
+    scrambled batches the row index it remembers from the last segment
+    mostly misses;
 6.  turbo kernel with taint vs plain version -- the flagship tables with
     three mid-atmosphere cells of one gas and one channel roughened by a
     staircase the Chebyshev fit cannot follow (``n_bad = 3``);
@@ -161,17 +167,21 @@ def hold(torch, got, ref, label: str, mask=None):
     return max(d_rad, d_tau), rad_k
 
 
-def ega_bound(mode: str, rows, seg_shape, n_active: int, extra, rates):
+def ega_bound(mode: str, table_shape, seg_shape, n_active: int, extra,
+              rates):
     """(bound_ms, bound_by) of one fused EGA pass: the larger of the
     compulsory bytes (every input once, every output once) over the HBM
     rate and the float32 operations this run's data needs (``n_active``
-    active segments) over the FP32 rate, both published peaks.  The same
-    work over the rates the probes measured on this card (``rates``) is
-    printed beside it."""
-    G, _PT, Q, D = rows.shape
+    active segments) over the FP32 rate, both published peaks.
+    ``table_shape`` is the logical table [G, P*T, Q, D]: the pad rows of
+    the packed layout are not counted, and a table corner counts the
+    ceil(log2 K) compares of a cold search however the kernel searches.
+    The same work over the rates the probes measured on this card
+    (``rates``) is printed beside it."""
+    G, PT, Q, D = table_shape
     R, S, F = seg_shape
     W = F - 8 - G
-    n_bytes = 4 * (rows.numel() + R * S * F + R) \
+    n_bytes = 4 * (G * PT * Q * D + R * S * F + R) \
         + sum(t.numel() * t.element_size() for t in extra) \
         + 4 * 2 * R * D
     if mode == "turbo":
@@ -190,6 +200,37 @@ def ega_bound(mode: str, rows, seg_shape, n_active: int, extra, rates):
           f"{n_bytes / rates['hbm_copy_gbs'] / 1e6:.4f} ms and "
           f"{ops / rates['fma_tflops'] / 1e9:.4f} ms", flush=True)
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def scrambled_check(torch, ega_fused, ForwardModel, dev, kernel: str,
+                    ng: int, nd: int) -> float:
+    """Max error of the ``kernel`` ("turbo" or "pallas") CUDA kernel
+    against its plain version on a scrambled small batch: 37 rays of
+    coarse steps (RAYDS 150 km, RAYDZ 8 km) on 8 x 5 tables, shuffled,
+    some emptied and some with np_ = NLOS (``workloads.scrambled_los``)."""
+    from jurassic_torch.workloads import scrambled_los, small_limb
+    ctl, ft, atm, obs = small_limb(ng=ng, nd=nd, nr=37, nlos=120,
+                                   rayds=150.0, raydz=8.0)
+    ctl.usetpu, ctl.kernel = 1, kernel
+    fm = ForwardModel(ctl, fast_tables=ft, device=dev)
+    los = scrambled_los(fm.trace(atm, obs), seed=3)
+    S = los.ds.shape[1]
+    if not ((los.np_ == 0).any() and (los.np_ == S).any()):
+        fail("the scrambled batch has no empty or no full ray")
+    common = (fm.cc_rows, los, fm.flags, fm.ig_co2, fm.ig_h2o)
+    if kernel == "turbo":
+        got = ega_fused.rt_fused_turbo(fm.turbo_tbl, *common)
+        ref = ega_fused.rt_fused_turbo_ref(fm.turbo_tbl, *common)
+    else:
+        got = ega_fused.rt_fused_table(fm.table_tbl, *common)
+        ref = ega_fused.rt_fused_table_ref(fm.table_tbl, *common)
+    torch.cuda.synchronize()
+    err, _ = hold(torch, got, ref,
+                  f"{kernel} scrambled coarse rays 37x120x{ng}x{nd}")
+    empty = los.np_ == 0
+    if not ((got[0][empty] == 0).all() and (got[1][empty] == 1).all()):
+        fail(f"{kernel}: an empty ray did not give rad 0, tau 1")
+    return err
 
 
 def run_golden(case: str, kernel: str) -> None:
@@ -498,7 +539,8 @@ def main() -> None:
     print(f"flagship: {R} rays x {D} channels, {ctl.ng} gases, "
           f"NLOS {ctl.nlos}, flags {fm.flags}, coef "
           f"{tuple(fm.turbo_tbl.coef.shape)}, eps_aug "
-          f"{tuple(fm_p.table_tbl.eps_aug.shape)} (packed in "
+          f"{tuple(fm_p.table_tbl.eps_aug.shape)} (four rows to a float4; "
+          f"packed in "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     # the roughened flagship: a staircase the Chebyshev fit cannot follow
     # (tests/test_pallas_kernel.py:381-389) in three cells
@@ -548,8 +590,9 @@ def main() -> None:
     t = fm.turbo_tbl
     small_extra = lambda t: (t.sr, t.chan_mask, fm.cc_rows, t.p_ax, t.t_ax,
                              t.np_u, t.nt_u)
-    b_ms, b_by = ega_bound("turbo", t.coef, seg_shape, n_active,
-                           small_extra(t), rates)
+    logical = lambda packed, q: (*packed.shape[:2], q, packed.shape[3])
+    b_ms, b_by = ega_bound("turbo", logical(t.coef, t.q_rows), seg_shape,
+                           n_active, small_extra(t), rates)
     ctl9, ft9, atm9, obs9 = small_limb(ng=4, nd=9, nr=37, nlos=120,
                                        rayds=20.0, raydz=1.0)
     ctl9.usetpu = 1
@@ -559,6 +602,8 @@ def main() -> None:
     err9, _ = hold(torch, ega_fused.rt_fused_turbo(fm9.turbo_tbl, *common9),
                    ega_fused.rt_fused_turbo_ref(fm9.turbo_tbl, *common9),
                    "turbo small 37x120x4x9")
+    err_s = max(scrambled_check(torch, ega_fused, ForwardModel, dev, "turbo",
+                                ng, nd) for ng, nd in ((4, 9), (9, 100)))
 
     phase("table kernel vs plain version")
     args_t = (fm_p.table_tbl, *common)
@@ -576,14 +621,17 @@ def main() -> None:
           f"{N_KERNEL_RUNS}), plain version {pt_ms:.1f} ms (one run)",
           flush=True)
     t = fm_p.table_tbl
-    bt_ms, bt_by = ega_bound("table", t.eps_aug, seg_shape, n_active,
-                             small_extra(t), rates)
+    bt_ms, bt_by = ega_bound("table", logical(t.eps_aug, t.k_rows + 5),
+                             seg_shape, n_active, small_extra(t), rates)
     ctl9.kernel = "pallas"
     fm9p = ForwardModel(ctl9, fast_tables=ft9, device=dev)
     err_t9, _ = hold(
         torch, ega_fused.rt_fused_table(fm9p.table_tbl, *common9),
         ega_fused.rt_fused_table_ref(fm9p.table_tbl, *common9),
         "table small 37x120x4x9")
+    err_ts = max(scrambled_check(torch, ega_fused, ForwardModel, dev,
+                                 "pallas", ng, nd)
+                 for ng, nd in ((4, 9), (9, 100)))
     del got, ref
 
     phase("turbo kernel with taint vs plain version")
@@ -685,12 +733,14 @@ def main() -> None:
         {"name": "ega_fused_turbo", **fused,
          "source": "jurassic_torch/csrc/ega_fused_turbo.cu",
          "replaces": "jurassic_tpu/ops/pallas/ega_fused.py:1135",
-         "launches": launches[0], "max_abs_err": max(err, err9, err_h),
+         "launches": launches[0],
+         "max_abs_err": max(err, err9, err_s, err_h),
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by},
         {"name": "ega_fused_table", **fused,
          "source": "jurassic_torch/csrc/ega_fused_table.cu",
          "replaces": "jurassic_tpu/ops/pallas/ega_fused.py:859",
-         "launches": launches_p[1], "max_abs_err": max(err_t, err_t9),
+         "launches": launches_p[1],
+         "max_abs_err": max(err_t, err_t9, err_ts),
          "ms": kt_ms, "plain_ms": pt_ms, "bound_ms": bt_ms,
          "bound_by": bt_by},
         *probe_records]}), flush=True)

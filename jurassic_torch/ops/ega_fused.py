@@ -23,8 +23,9 @@ Each has two implementations of one function:
   corner routine.  They run on any device and are what CPU tensors get.
 * the CUDA kernels ``csrc/ega_fused_turbo.cu`` and
   ``csrc/ega_fused_table.cu`` (shared code in ``csrc/ega_common.cuh``)
-  -- one block per ray, one thread per channel, the per-gas ``tau_path``
-  in registers, corner bracketing and table-row reads inside the kernel.
+  -- a few adjacent rays per block, one thread per (ray, channel), the
+  per-gas ``tau_path`` in registers, corner bracketing and table-row
+  reads (16-byte loads of the packed layout) inside the kernel.
 
 :func:`rt_fused_turbo` and :func:`rt_fused_table` dispatch on the device
 of their tensors: the plain version for CPU tensors, the kernel for CUDA
@@ -45,7 +46,7 @@ from ..constants import NA, P0, TAU_OPAQUE
 from ..geometry import LosData
 from ..tables import LOG2_RATIO_U
 from .table_pack import BIG, N_AUG, TableTables
-from .turbo_fit import N_TURBO_AUX, TurboTables
+from .turbo_fit import N_TURBO_AUX, TurboTables, unpack_rows
 
 N_SEG = 8           # fixed per-segment stream fields (see pack_segments)
 N_CC = 12           # packed continuum coefficient rows
@@ -293,26 +294,29 @@ def _row_lookup(row, l2u0, nk2, target, u_seg):
     return _c01(_lipg(u_lo, e_lo, u_lo * RATIO, e_hi, u_new))
 
 
-def _rt_fused_ref(rows, rows_tpv, corner, axes, sr, chan_mask, cc_rows,
-                  los: LosData, flags, ig_co2: int, ig_h2o: int,
+def _rt_fused_ref(packed, n_rows, rows_tpv, corner, axes, sr, chan_mask,
+                  cc_rows, los: LosData, flags, ig_co2: int, ig_h2o: int,
                   want_taint: bool):
     """The segment loop both plain versions share: continua, the four
     corners of every gas through ``corner(blk, target, u_seg)`` (blk
     [R, G, 4, Q, D] the gathered table rows -> eps [R, G, 4, D]),
     bilinear in T then p, the opacity cut, the source and the rad/tau
-    recursion.  ``rows`` is the table [G, P*T, Q, D], ``rows_tpv`` the
-    row offsets of (temperature, pressure, validity), ``axes`` the
-    channel-uniform (p_ax, t_ax, np_u, nt_u).  Rays run in chunks so
-    that the gathered rows stay near REF_BLOCK_BYTES.  Returns
-    (rad, tau, taint | None)."""
+    recursion.  ``packed`` is the table as the kernels read it
+    ([G, P*T, ceil(Q/4), D, 4], ``turbo_fit.pack_rows``) with ``n_rows``
+    = Q logical rows: only the gathered corners of a segment are unpacked,
+    no second copy of the table is made.  ``rows_tpv`` are the row offsets
+    of (temperature, pressure, validity), ``axes`` the channel-uniform
+    (p_ax, t_ax, np_u, nt_u).  Rays run in chunks so that the gathered
+    rows stay near REF_BLOCK_BYTES.  Returns (rad, tau, taint | None)."""
     seg = pack_segments(los, ig_co2, ig_h2o)
     idx = corner_indices(*axes, los.p, los.t)
-    G, PT, Q, D = rows.shape
+    G, PT, Q4, D, _ = packed.shape
+    Q = n_rows
     R, S, F = seg.shape
     W = F - N_SEG - G
     dev = seg.device
     ROW_T, ROW_P, ROW_VALID = rows_tpv
-    flat = rows.reshape(G * PT, Q, D)
+    flat = packed.reshape(G * PT, Q4, D, 4)
     sr = sr.to(torch.float32)
     goff = (torch.arange(G, device=dev) * PT).view(1, G, 1)
     corner_off = torch.tensor([0, 1, 0, 1], device=dev)
@@ -349,7 +353,7 @@ def _rt_fused_ref(rows, rows_tpv, corner, axes, sr, chan_mask, cc_rows,
             target = 1.0 - tp                                  # [R, G, D]
             u_seg = f[:, N_SEG + W:N_SEG + W + G].unsqueeze(-1)
             sel = idx_c[:, s][:, :, pair_sel] + corner_off + goff
-            blk = flat[sel]                                # [R, G, 4, Q, D]
+            blk = unpack_rows(flat[sel], Q)                # [R, G, 4, Q, D]
             eps4 = corner(blk, target, u_seg)              # [R, G, 4, D]
             vld = blk[:, :, :, ROW_VALID, :]
             okl = chan_mask * vld[:, :, 0] * vld[:, :, 1] * vld[:, :, 2] \
@@ -409,7 +413,8 @@ def rt_fused_turbo_ref(tables: TurboTables, cc_rows, los: LosData, flags,
                              target.unsqueeze(2),
                              _eta_of(target).unsqueeze(2),
                              u_seg.unsqueeze(2))
-    return _rt_fused_ref(tables.coef, (AUX + 9, AUX + 10, AUX + 11), corner,
+    return _rt_fused_ref(tables.coef, tables.q_rows,
+                         (AUX + 9, AUX + 10, AUX + 11), corner,
                          _axes(tables), tables.sr, tables.chan_mask, cc_rows,
                          los, flags, ig_co2, ig_h2o, tables.n_bad > 0)
 
@@ -427,7 +432,8 @@ def rt_fused_table_ref(tables: TableTables, cc_rows, los: LosData, flags,
                            blk[:, :, :, K + 4, :].to(torch.int64),
                            target.unsqueeze(2), u_seg.unsqueeze(2))
     rad, tau, _ = _rt_fused_ref(
-        tables.eps_aug, (K + 1, K + 2, K + 3), corner, _axes(tables),
+        tables.eps_aug, K + N_AUG, (K + 1, K + 2, K + 3), corner,
+        _axes(tables),
         tables.sr, tables.chan_mask, cc_rows, los, flags, ig_co2, ig_h2o,
         False)
     return rad, tau
@@ -461,12 +467,10 @@ def rt_fused_turbo(tables: TurboTables, cc_rows, los: LosData, flags,
         raise ValueError(f"the CUDA kernel is compiled for Chebyshev degree "
                          f"{KERNEL_DEG}, got ({tables.deg_f}, "
                          f"{tables.deg_i})")
-    Q = tables.coef.shape[2]
-    if Q != 2 * (KERNEL_DEG + 1) + N_TURBO_AUX:
-        raise ValueError(f"coef has {Q} rows per cell")
     rad, tau, taint, launched = _launch(
-        "jt_ega_fused_turbo", tables.coef, tables, cc_rows, los, flags,
-        ig_co2, ig_h2o, tables.n_bad > 0, (Q, tables.deg_f, tables.deg_i))
+        "jt_ega_fused_turbo", tables.coef, tables.q_rows, tables, cc_rows,
+        los, flags, ig_co2, ig_h2o, tables.n_bad > 0,
+        (tables.q_rows, tables.deg_f, tables.deg_i))
     LAUNCHES += launched
     return rad, tau, (None if taint is None else taint > 0.5)
 
@@ -477,7 +481,8 @@ def rt_fused_table(tables: TableTables, cc_rows, los: LosData, flags,
 
     CPU tensors go through :func:`rt_fused_table_ref`; CUDA tensors
     launch the hand-written kernel (``csrc/ega_fused_table.cu``) or
-    raise.  The kernel binary-searches each emissivity row when
+    raise.  The kernel searches each emissivity row from the index the
+    last segment found (``table_pack.hinted_count``) when
     ``tables.monotone`` (every row non-decreasing, checked at the table
     build) and otherwise scans it with the literal count/max/min of the
     plain version."""
@@ -486,12 +491,9 @@ def rt_fused_table(tables: TableTables, cc_rows, los: LosData, flags,
         return rt_fused_table_ref(tables, cc_rows, los, flags, ig_co2,
                                   ig_h2o)
     K = tables.k_rows
-    if tables.eps_aug.shape[2] != K + N_AUG:
-        raise ValueError(f"eps_aug has {tables.eps_aug.shape[2]} rows per "
-                         f"cell, expected {K + N_AUG}")
     rad, tau, _, launched = _launch(
-        "jt_ega_fused_table", tables.eps_aug, tables, cc_rows, los, flags,
-        ig_co2, ig_h2o, False, (K, int(tables.monotone)))
+        "jt_ega_fused_table", tables.eps_aug, K + N_AUG, tables, cc_rows,
+        los, flags, ig_co2, ig_h2o, False, (K, int(tables.monotone)))
     LAUNCHES_TABLE += launched
     return rad, tau
 
@@ -510,13 +512,14 @@ def _check(name, x, dtype, shape, dev):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(entry: str, rows, tables, cc_rows, los: LosData, flags,
-            ig_co2: int, ig_h2o: int, want_taint: bool, extra: tuple):
+def _launch(entry: str, packed, n_rows: int, tables, cc_rows, los: LosData,
+            flags, ig_co2: int, ig_h2o: int, want_taint: bool, extra: tuple):
     """Check the tensors, allocate the outputs and launch C entry point
     ``entry`` (``csrc/ega_common.cuh`` has the argument order) on the
-    current stream.  ``rows`` is the kernel's table [G, P*T, Q, D],
-    ``extra`` its own integer arguments.  Returns (rad, tau, taint f32 |
-    None, launches made: 0 for an empty batch, else 1)."""
+    current stream.  ``packed`` is the kernel's table
+    [G, P*T, ceil(Q/4), D, 4] with ``n_rows`` = Q logical rows, ``extra``
+    the entry point's own integer arguments.  Returns (rad, tau, taint
+    f32 | None, launches made: 0 for an empty batch, else 1)."""
     import ctypes
 
     from ._build import load_library
@@ -525,9 +528,14 @@ def _launch(entry: str, rows, tables, cc_rows, los: LosData, flags,
     if los.p.dtype != torch.float32 or los.t.dtype != torch.float32:
         raise ValueError("the CUDA kernels bracket table corners in "
                          "float32: trace the LOS in float32 on the card")
-    if rows.dim() != 4:
-        raise ValueError(f"table has shape {tuple(rows.shape)}")
-    G, PT, Q, D = rows.shape
+    if packed.dim() != 5 or packed.shape[4] != 4 \
+            or packed.shape[2] != -(-n_rows // 4):
+        raise ValueError(f"table has shape {tuple(packed.shape)}, expected "
+                         f"[G, P*T, {-(-n_rows // 4)}, D, 4]")
+    G, PT, Q4, D, _ = packed.shape
+    if packed.numel() >= 2 ** 31:
+        raise ValueError("the CUDA kernels index the table in 32 bits: "
+                         f"{packed.numel()} elements are too many")
     if not 1 <= G <= KERNEL_MAX_GASES:
         raise ValueError(f"the CUDA kernels take 1..{KERNEL_MAX_GASES} "
                          f"gases, got {G}")
@@ -546,7 +554,7 @@ def _launch(entry: str, rows, tables, cc_rows, los: LosData, flags,
     t_ax = tables.t_ax.to(dev, torch.float32).contiguous()
     np_u = tables.np_u.to(dev, torch.int32).contiguous()
     nt_u = tables.nt_u.to(dev, torch.int32).contiguous()
-    args = (("table rows", rows, torch.float32, (G, PT, Q, D)),
+    args = (("table rows", packed, torch.float32, (G, PT, Q4, D, 4)),
             ("sr", tables.sr, torch.float32, (n_src, D)),
             ("chan_mask", tables.chan_mask, torch.float32, (G, D)),
             ("cc_rows", cc_rows, torch.float32, (N_CC + W, D)),
@@ -569,7 +577,7 @@ def _launch(entry: str, rows, tables, cc_rows, los: LosData, flags,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
-            ptr(seg), ptr(np_), ptr(rows), ptr(tables.sr),
+            ptr(seg), ptr(np_), ptr(packed), ptr(tables.sr),
             ptr(tables.chan_mask), ptr(cc_rows), ptr(p_ax), ptr(t_ax),
             ptr(np_u), ptr(nt_u), ptr(rad), ptr(tau), ptr(taint),
             R, S, F, W, G, P, T, D, n_src, bits, *extra,

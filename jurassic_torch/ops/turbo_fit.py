@@ -11,7 +11,7 @@ NumPy, so the coefficient planes are byte-identical to the JAX
 package's; only the TPU layout is dropped (the 128-lane channel padding,
 the channel shards and the 8-row padding of the coefficient axis).
 
-Row layout of ``TurboTables.coef`` [G, P*T, Q, D] (``Q = J_f + J_i +
+Row layout of the logical table [G, P*T, Q, D] (``Q = J_f + J_i +
 N_TURBO_AUX``, ``A = J_f + J_i``):
 
   rows 0 .. J_f-1         forward Chebyshev coefficients (of eta(x))
@@ -27,6 +27,11 @@ N_TURBO_AUX``, ``A = J_f + J_i``):
   row  A + 12, A + 13     u0, u_hi
   row  A + 14 .. A + 20   precomputed slopes xi_a, xi_b, s_lo_inv,
                           s_hi_inv, s_lo_fwd, s_hi_fwd, ky
+
+``TurboTables.coef`` holds these rows packed for 16-byte loads (see
+:func:`pack_rows`): [G, P*T, ceil(Q/4), D, 4], four consecutive rows of
+one channel in one ``float4``.  That is the only copy kept;
+:meth:`TurboTables.rows` unpacks the logical table from it.
 """
 from __future__ import annotations
 
@@ -43,6 +48,41 @@ N_TURBO_AUX = 21   # 14 base rows + 7 precomputed-slope rows (A+14..20)
 DEG = 8            # Chebyshev degree of the forward and inverse fits
 FIT_TOL = 2e-3     # per-row fit and roundtrip error gate
 CHORD_TOL = 3e-3   # per-row gate on the gap to the linear-in-u chords
+
+
+def pack_rows(rows):
+    """Table rows [G, P*T, Q, D] packed for 16-byte loads:
+    [G, P*T, ceil(Q/4), D, 4] float32, element [g, c, a, d, b] = row
+    4 a + b of channel d.  A thread of the CUDA kernels then reads four
+    consecutive rows of its channel in one ``float4`` and a warp 512
+    contiguous bytes.  Q is padded to a multiple of 4 with zero rows,
+    which no reader takes as data.  NumPy array or torch tensor in, the
+    same kind out."""
+    G, PT, Q, D = rows.shape
+    Q4 = -(-Q // 4)
+    if isinstance(rows, torch.Tensor):
+        out = rows.new_zeros((G, PT, Q4 * 4, D), dtype=torch.float32)
+        out[:, :, :Q] = rows
+        return out.view(G, PT, Q4, 4, D).permute(0, 1, 2, 4, 3).contiguous()
+    out = np.zeros((G, PT, Q4 * 4, D), np.float32)
+    out[:, :, :Q] = rows
+    return np.ascontiguousarray(
+        out.reshape(G, PT, Q4, 4, D).transpose(0, 1, 2, 4, 3))
+
+
+def unpack_rows(packed, q: int):
+    """The logical rows [..., Q, D] of a table packed by :func:`pack_rows`
+    (any leading axes): a copy, without the pad rows."""
+    *lead, Q4, D, four = packed.shape
+    if four != 4 or not 0 < q <= 4 * Q4:
+        raise ValueError(f"packed table of shape {tuple(packed.shape)} does "
+                         f"not hold {q} rows")
+    n = len(lead)
+    if isinstance(packed, torch.Tensor):
+        sw = packed.transpose(n + 1, n + 2)
+    else:
+        sw = np.swapaxes(packed, n + 1, n + 2)
+    return sw.reshape(*lead, Q4 * 4, D)[..., :q, :]
 
 
 class TurboStats(NamedTuple):
@@ -62,7 +102,7 @@ class TurboTables(NamedTuple):
     The array fields are NumPy arrays after the build and torch tensors
     after :meth:`to`."""
 
-    coef: torch.Tensor       # [G, P*T, Q, D] f32 (layout: module doc)
+    coef: torch.Tensor       # [G, P*T, ceil(Q/4), D, 4] f32 (pack_rows)
     sr: torch.Tensor         # [S, D] f32 source radiance
     chan_mask: torch.Tensor  # [G, D] f32 (np_ >= 2 per channel)
     p_ax: torch.Tensor       # [G, P] f64 channel-uniform pressure axis
@@ -72,6 +112,15 @@ class TurboTables(NamedTuple):
     deg_f: int = 8
     deg_i: int = 8
     n_bad: int = 0           # rows whose per-row fit failed the gate
+
+    @property
+    def q_rows(self) -> int:
+        """Q, the rows per (gas, cell) of the logical table."""
+        return self.deg_f + 1 + self.deg_i + 1 + N_TURBO_AUX
+
+    def rows(self):
+        """The logical table [G, P*T, Q, D], unpacked (a copy)."""
+        return unpack_rows(self.coef, self.q_rows)
 
     def to(self, device) -> "TurboTables":
         def ten(a):
@@ -400,7 +449,7 @@ def build_turbo_tables(ft: FastTables, device="cpu"):
         2.0 / np.maximum(k_hi.astype(np.float64), 1.0))
 
     tt = TurboTables(
-        coef=packed, sr=np.asarray(ft.sr, np.float32),
+        coef=pack_rows(packed), sr=np.asarray(ft.sr, np.float32),
         chan_mask=(ft.np_ >= 2).astype(np.float32),
         p_ax=p_ax, t_ax=t_ax, np_u=np_u, nt_u=nt_u,
         deg_f=deg_f, deg_i=deg_i, n_bad=int(bad.sum()))
@@ -410,7 +459,8 @@ def build_turbo_tables(ft: FastTables, device="cpu"):
 def build_turbo_tables_cached(ft: FastTables, cache_dir, device="cpu"):
     """:func:`build_turbo_tables` behind an ``.npz`` cache in
     ``cache_dir``, keyed by a hash of the FastTables content (the fit of
-    a benchmark-size table takes about a minute of host time)."""
+    a benchmark-size table takes about a minute of host time).  The file
+    holds the logical rows, whatever layout the kernels read."""
     h = hashlib.sha256()
     for f in ft._fields:
         a = np.ascontiguousarray(getattr(ft, f))
@@ -420,7 +470,8 @@ def build_turbo_tables_cached(ft: FastTables, cache_dir, device="cpu"):
     keys = ("coef", "sr", "chan_mask", "p_ax", "t_ax", "np_u", "nt_u")
     if cf.exists():
         with np.load(cf, allow_pickle=False) as f:
-            tt = TurboTables(*(f[k] for k in keys),
+            tt = TurboTables(pack_rows(f["coef"]),
+                             *(f[k] for k in keys[1:]),
                              *(int(x) for x in f["meta"]))
             stats = TurboStats(int(f["stats"][0]),
                                *map(float, f["stats"][1:]))
@@ -430,7 +481,8 @@ def build_turbo_tables_cached(ft: FastTables, cache_dir, device="cpu"):
         return None, None
     cf.parent.mkdir(parents=True, exist_ok=True)
     tmp = cf.with_suffix(".tmp.npz")
-    np.savez(tmp, **{k: getattr(tt, k).numpy() for k in keys},
+    np.savez(tmp, coef=tt.rows().numpy(),
+             **{k: getattr(tt, k).numpy() for k in keys[1:]},
              meta=np.asarray([tt.deg_f, tt.deg_i, tt.n_bad]),
              stats=np.asarray(list(stats), np.float64))
     tmp.replace(cf)
@@ -455,7 +507,7 @@ def turbo_tables_from_jax(eps_aug, sr, chan_mask, p_ax, t_ax, np_u, nt_u,
         raise ValueError(f"eps_aug shape {coef.shape} does not hold "
                          f"{Q} rows x {D} channels")
     tt = TurboTables(
-        coef=np.ascontiguousarray(coef[:, :, :Q, :D]),
+        coef=pack_rows(coef[:, :, :Q, :D]),
         sr=np.ascontiguousarray(np.asarray(sr, np.float32)[:, :D]),
         chan_mask=np.ascontiguousarray(
             np.asarray(chan_mask, np.float32)[:, :D]),

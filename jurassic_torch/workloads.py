@@ -10,6 +10,10 @@ RAYDS = 10, RAYDZ = 0.5 and the NLOS = 400 step budget.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from .geometry import LosData
 from .models.geometry_gen import limb_geometry
 from .models.synthetic import (limb_workload, synthetic_atm, synthetic_ctl,
                                synthetic_fast_tables)
@@ -37,3 +41,22 @@ def small_limb(ng: int, nd: int, nr: int, nlos: int = 48,
     ctl.ctm_co2 = ctl.ctm_h2o = ctl.ctm_n2 = ctl.ctm_o2 = 1
     ft = synthetic_fast_tables(ctl, n_p=8, n_t=5, n_k=48)
     return ctl, ft, synthetic_atm(ctl), limb_workload(ctl, nr)
+
+
+def scrambled_los(los: LosData, seed: int = 0) -> LosData:
+    """``los`` with its rays in a random order (from ``seed``), every
+    seventh ray emptied (``np_`` = 0, no valid segment) and every seventh
+    given the full segment budget (``np_`` = NLOS, the tail invalid).
+    Neighbouring rays then bracket different table cells and end at
+    different segments: the batch on which what the fused kernels share
+    between the rays of a block, or remember from the last segment, does
+    not hold."""
+    R, S = los.ds.shape
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(R))
+    perm = perm.to(los.ds.device)
+    los = LosData(*(f[perm] for f in los))
+    np_, valid = los.np_.clone(), los.valid.clone()
+    np_[1::7] = 0
+    valid[1::7] = False
+    np_[2::7] = S
+    return los._replace(np_=np_, valid=valid)

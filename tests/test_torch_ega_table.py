@@ -24,7 +24,7 @@ from jurassic_torch.geometry import los_from_numpy
 from jurassic_torch.ops import ega_fused as tef
 from jurassic_torch.ops.continua import precompute_continua
 from jurassic_torch.ops.table_pack import table_tables_from_jax
-from jurassic_torch.ops.turbo_fit import turbo_tables_from_jax
+from jurassic_torch.ops.turbo_fit import pack_rows, turbo_tables_from_jax
 
 from test_torch_cli import _roughen
 from test_torch_host_copies import small_limb_pair
@@ -96,10 +96,11 @@ def test_scan_form_handles_non_monotone_rows(setup):
     """The literal count/max/min form is defined on any row: a bump
     changes the answer only where the bump is read, and stays finite."""
     m, _los, lt, tt, cc, _ = setup
-    aug = tt.eps_aug.clone()
+    aug = tt.rows().clone()
     aug[0, :, 5, :] = aug[0, :, 7, :] + 0.01
-    rad, tau = tef.rt_fused_table_ref(tt._replace(eps_aug=aug), cc, lt,
-                                      m.flags, m.ig_co2, m.ig_h2o)
+    rad, tau = tef.rt_fused_table_ref(
+        tt._replace(eps_aug=pack_rows(aug)), cc, lt, m.flags, m.ig_co2,
+        m.ig_h2o)
     assert torch.isfinite(rad).all() and torch.isfinite(tau).all()
     assert (tau >= 0).all() and (tau <= 1).all()
 

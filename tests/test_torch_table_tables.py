@@ -70,8 +70,10 @@ def test_table_tables_match_jax_bytewise(case, tmp_path):
     K, D = pt.k_rows, pt.d_true
     aug = np.asarray(pt.eps_aug)
     assert tt.k_rows == K
-    assert tuple(tt.eps_aug.shape) == aug.shape[:2] + (K + N_AUG, D)
-    assert _same_bytes(tt.eps_aug.numpy(), aug[:, :, :K + N_AUG, :D])
+    assert tuple(tt.eps_aug.shape) == aug.shape[:2] \
+        + (-(-(K + N_AUG) // 4), D, 4)
+    # the port keeps the rows packed four to a float4
+    assert _same_bytes(tt.rows().numpy(), aug[:, :, :K + N_AUG, :D])
     # what was stripped is padding
     assert not aug[:, :, K + N_AUG:, :].any() and not aug[..., D:].any()
     assert _same_bytes(tt.sr.numpy(), np.asarray(pt.sr)[:, :D])
@@ -108,7 +110,7 @@ def test_non_monotone_rows_are_flagged():
     eps[1, 2, 3, 5, 0] = eps[1, 2, 3, 7, 0] + 0.01      # a bump in one row
     tt = build_table_tables(port_fast_tables(ft._replace(eps=eps)))
     assert not tt.monotone
-    aug = tt.eps_aug.numpy()
+    aug = tt.rows().numpy()
     assert not rows_monotone(aug, tt.k_rows)
     assert (aug[:, :, :tt.k_rows] <= BIG).all()
 

@@ -56,9 +56,11 @@ def test_turbo_tables_match_jax_bytewise(case):
     D = pt.d_true
     Q = pt.deg_f + 1 + pt.deg_i + 1 + N_TURBO_AUX
     eps_aug = np.asarray(pt.eps_aug)
-    assert tuple(tt.coef.shape) == eps_aug.shape[:2] + (Q, D)
-    # coefficient + aux planes (incl. ROW_VALID), lane padding stripped
-    assert _same_bytes(tt.coef.numpy(), eps_aug[:, :, :Q, :D])
+    assert tuple(tt.coef.shape) == eps_aug.shape[:2] + (-(-Q // 4), D, 4)
+    assert tt.q_rows == Q
+    # coefficient + aux planes (incl. ROW_VALID), lane padding stripped;
+    # the port keeps them packed four rows to a float4
+    assert _same_bytes(tt.rows().numpy(), eps_aug[:, :, :Q, :D])
     # what was stripped is padding
     assert not eps_aug[:, :, Q:, :].any() and not eps_aug[..., D:].any()
     assert _same_bytes(tt.sr.numpy(), np.asarray(pt.sr)[:, :D])
