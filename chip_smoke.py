@@ -34,7 +34,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     three mid-atmosphere cells of one gas and one channel roughened by a
     staircase the Chebyshev fit cannot follow (``n_bad = 3``);
 7.  goldens -- ``python -m jurassic_torch.cli.formod ... USEGPU 1`` on the
-    ``ega`` and ``nadir`` goldens against the C oracle's ``rad.tab``: in
+    ``ega`` and ``nadir`` goldens against the C oracle's ``rad.tab`` (the
+    ``ega`` turbo run with ``BENCH 3``, whose repeat runs must show no
+    deviations: the kernels are reproducible run to run): in
     turbo mode at the turbo bar (5e-3 of max|rad|, 5e-3 on tau), with
     ``KERNEL pallas`` at the table bar (2e-3), and the float32 tangent
     points within 1e-2 km / 1e-2 degrees;
@@ -50,10 +52,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
     for bit the table kernel's output on tainted lanes and the turbo
     kernel's on all others; then one profiled formod: device busy time
     and kernel launches.
+9.  eager oracles -- ``KERNEL = exact`` in float64 on the card on the
+    ``limb``, ``nadir``, ``ega``, ``flagship``, ``gas30`` and ``fov``
+    goldens at the JAX package's bars (``flagship`` and ``gas30`` with
+    their tables made by ``tools/make_synthetic_tables.py``), ``fast`` on
+    ``ega`` at 2e-3, no fused kernel launched; at the flagship one
+    float64 trace, the eager ``jax`` pipeline in float64 against the
+    table kernel on the same LOS cast to float32 (1e-5 of max|rad|, 1e-5
+    on tau), each pass's time and device launches;
+10. packages -- the flagship with ``RAYPACK 271`` (4 packages on two CUDA
+    streams) under ``KERNEL = auto``, ``pallas`` and the hybrid: bit for
+    bit the one-package run, one fused launch per package (the hybrid's
+    table launches: one per package that carries taint), medians beside
+    the one-package medians, the device's idle share; ``RAYPACK 0``'s
+    sizing (bytes per ray, free memory, rays per package), and the
+    estimate against ``torch.cuda.max_memory_allocated()`` of a
+    one-package run, which it must not undercut;
+11. pencil -- ``IP = 2`` and ``IP = 3`` at the flagship width (every
+    eighth ray) on a three-profile track with identical profiles and
+    ``REFRAC 0``, against ``IP = 1`` (2e-3 / 0.1 of max|rad|, the JAX
+    test's bars), through the turbo kernel;
 
 Every model here is built with USEGPU = 1 on the CUDA device and every
 CLI run passes ``USEGPU 1``: nothing can fall back to the CPU or to a
-plain version.
+plain version.  The launch counts are set to 0 just before each path and
+read just after it.
 
 The second-to-last line is the kernel record as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -68,9 +91,12 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+FIT_CACHE = REPO / "jurassic_torch" / "_build" / "turbo_cache"
 KERNEL_TOL = 5e-5       # kernel vs plain version, both float32
 PROBE_TOL = 1e-5        # peak probe vs plain version, relative
 # loop counts at which each sfu chain still tells its number of steps
@@ -85,7 +111,19 @@ CHORD_TOL = 2e-3        # table vs turbo on the same tables, of max|rad|
 TP_TOL = 1e-2
 MAX_NONFINITE_TP = {"ega": 0, "nadir": 8}
 N_KERNEL_RUNS = 10
-N_FORMOD_RUNS = 5
+N_FORMOD_RUNS = 3
+N_PACKAGED_RUNS = 2
+RAYPACK = 271            # the flagship's 1084 rays in 4 packages
+# the JAX package's bars against the C oracle (tests/test_forward_golden.py
+# :46-70, tests/test_flagship_golden.py:64-107, tests/test_gas30_golden.py
+# :65-74): rad (of max|rad|, per band / per channel where the JAX test
+# scales so), tau, tangent points (km / deg; None: not checked)
+EAGER_GOLDENS = {"limb": (5e-6, 2e-6, 2e-4), "nadir": (5e-6, 2e-6, 2e-4),
+                 "ega": (5e-6, 2e-6, 2e-4), "flagship": (1e-5, 5e-6, 2e-4),
+                 "gas30": (1e-5, 5e-6, None), "fov": (5e-6, 2e-6, None)}
+FLAGSHIP_BANDS = (slice(0, 40), slice(40, 70), slice(70, 100))
+EAGER_VS_TABLE_TOL = 1e-5   # tests/test_pallas_kernel.py:41-68
+PENCIL_TOL = {2: 2e-3, 3: 0.1}   # tests/test_interp_atm.py:101-105
 # flagship cells (pressure index, temperature index) of gas 0, channel 2
 # that the limb scan reads on ~10,000 segments each; roughening them gives
 # the hybrid tainted lanes to re-evaluate
@@ -109,6 +147,32 @@ PEAK_HBM_BYTES = 3.35e12
 OPS_TURBO_CORNER = 108
 OPS_PER_GAS = {"turbo": 48, "table": 40}
 OPS_PER_SEGMENT = 78
+
+
+def roughen(ft):
+    """The roughened flagship tables: a staircase the Chebyshev fit cannot
+    follow (tests/test_pallas_kernel.py:381-389) in three cells."""
+    import numpy as np
+    eps = np.array(ft.eps)
+    rng = np.random.default_rng(ROUGH_SEED)
+    stair = np.cumsum(rng.uniform(0, 1, eps.shape[3]) ** 8)
+    stair = (0.1 + 0.8 * stair / stair[-1]).astype(np.float32)
+    for (ip, it) in ROUGH_CELLS:
+        eps[ROUGH_GAS, ip, it, :, ROUGH_CHANNEL] = stair
+    return ft._replace(eps=eps)
+
+
+def fit_flagship(rough: bool) -> float:
+    """Fit the flagship's turbo tables (the roughened ones if ``rough``)
+    into the cache, in a worker process while the kernels build; returns
+    the seconds it took (next to nothing when the cache holds them)."""
+    sys.path.insert(0, str(REPO))
+    from jurassic_torch.ops.turbo_fit import build_turbo_tables_cached
+    from jurassic_torch.workloads import flagship
+    ft = flagship()[1]
+    t0 = time.perf_counter()
+    build_turbo_tables_cached(roughen(ft) if rough else ft, FIT_CACHE)
+    return time.perf_counter() - t0
 
 
 def fail(msg: str) -> None:
@@ -233,10 +297,11 @@ def scrambled_check(torch, ega_fused, ForwardModel, dev, kernel: str,
     return err
 
 
-def run_golden(case: str, kernel: str) -> None:
+def run_golden(case: str, kernel: str, bench: int = 0) -> None:
     """The port's CLI on the card for tests/goldens/<case>, against the
     C oracle's rad.tab; ``kernel`` is "turbo" (the ctl's own KERNEL,
-    auto) or "pallas"."""
+    auto) or "pallas".  ``bench`` > 0 adds ``BENCH <bench>``: that many
+    repeat runs, which must show no deviations from the first."""
     import numpy as np
     src = REPO / "tests" / "goldens" / case
     work = REPO / "jurassic_torch" / "_build" / "smoke" / f"{case}_{kernel}"
@@ -248,6 +313,8 @@ def run_golden(case: str, kernel: str) -> None:
            "obs.tab", "atm.tab", "rad_port.tab", "USEGPU", "1"]
     if kernel == "pallas":
         cmd += ["KERNEL", "pallas"]
+    if bench:
+        cmd += ["BENCH", str(bench)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
                          text=True)
@@ -256,12 +323,20 @@ def run_golden(case: str, kernel: str) -> None:
         fail(f"golden {case} ({kernel}): CLI exited {res.returncode}\n"
              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
     last = [ln for ln in res.stdout.splitlines() if "kernel launches" in ln]
-    want = ("variant turbo, fused EGA kernel launches turbo 1 table 0"
+    n = 1 + bench
+    want = (f"variant turbo, fused EGA kernel launches turbo {n} table 0"
             if kernel == "turbo" else
-            "variant table, fused EGA kernel launches turbo 0 table 1")
+            f"variant table, fused EGA kernel launches turbo 0 table {n}")
     if not last or "device cuda" not in last[-1] or want not in last[-1]:
         fail(f"golden {case} ({kernel}): the CLI did not run the kernel on "
              f"the card: {last}")
+    if bench:
+        for ln in res.stdout.splitlines():
+            if "deviations" in ln or "formod took" in ln:
+                print(f"  {ln}")
+        if "shows no deviations" not in res.stdout:
+            fail(f"golden {case} ({kernel}): BENCH {bench} shows "
+                 "deviations between repeat runs")
     ref = np.loadtxt(work / "rad.tab")
     out = np.loadtxt(work / "rad_port.tab")
     nd = (ref.shape[1] - 10) // 2
@@ -455,22 +530,285 @@ def probe_phase(torch, peak, dev):
     return m, [
         {"name": "peak_fma", "route": "cuda", "source": src_file,
          "replaces": "tools/vpu_peak.py:33", "launches": launches["fma"],
+         "launches_on": "tools.peak.measure",
          "max_abs_err": errs["fma"], "ms": m["t_fma"][0] * 1e3,
          "plain_ms": plain["fma"],
          "bound_ms": 2 * steps / PEAK_FP32_FLOPS * 1e3,
          "bound_by": "operations", "library_ms": None},
         {"name": "peak_sfu", "route": "cuda", "source": src_file,
          "replaces": "tools/vpu_peak.py:56", "launches": launches["sfu"],
+         "launches_on": "tools.peak.measure",
          "max_abs_err": errs["sfu"], "ms": t_sfu, "plain_ms": plain["sfu"],
          "bound_ms": len(peak.SFU_OPS) * steps / PEAK_FP32_FLOPS * 1e3,
          "bound_by": "operations", "library_ms": None},
         {"name": "peak_hbm_copy", "route": "cuda", "source": src_file,
          "replaces": "tools/vpu_peak.py:76", "launches": launches["copy"],
+         "launches_on": "tools.peak.measure",
          "max_abs_err": 0.0, "ms": m["t_copy"][0] * 1e3,
          "plain_ms": plain["copy"],
          "bound_ms": 2.0 * m["copy_bytes"] / PEAK_HBM_BYTES * 1e3,
          "bound_by": "bytes", "library_ms": plain["copy"]},
     ]
+
+
+def golden_dir(case: str) -> Path:
+    """tests/goldens/<case> copied under jurassic_torch/_build/smoke/,
+    with the synthetic tables of ``flagship`` and ``gas30`` made there by
+    tools/make_synthetic_tables.py (NumPy; the C oracle read the same
+    files), as the JAX tests make them."""
+    from jurassic_torch.config import read_ctl
+    work = REPO / "jurassic_torch" / "_build" / "smoke" / f"eager_{case}"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(REPO / "tests" / "goldens" / case, work)
+    if case in ("flagship", "gas30"):
+        ctl = read_ctl(["x", str(next(work.glob("*.ctl"))), "o", "a", "r"],
+                       verbose=False)
+        gases = [g for g in ctl.emitter[:ctl.ng] if g not in ("N2", "O2")]
+        subprocess.run(
+            [sys.executable, str(REPO / "tools" / "make_synthetic_tables.py"),
+             str(work), "--tblbase", "synth", "--gases", *gases,
+             "--channels", *[f"{x:.4f}" for x in ctl.nu]],
+            check=True, stdout=subprocess.DEVNULL)
+    return work
+
+
+def eager_golden(torch, ega_fused, ForwardModel, dev, case: str,
+                 kernel: str) -> None:
+    """``KERNEL = exact`` (or ``fast``) in float64 on the card against
+    the C oracle's rad.tab at the JAX package's bar."""
+    import numpy as np
+    from jurassic_torch.config import read_ctl
+    from jurassic_torch.io_tab import read_atm, read_obs
+    d = golden_dir(case)
+    ctl = read_ctl(["formod", str(next(d.glob("*.ctl"))), "o", "a", "r"],
+                   verbose=False)
+    ctl.tblbase = str(d / Path(ctl.tblbase).name)
+    if ctl.fov != "-":
+        ctl.fov = str(d / Path(ctl.fov).name)
+    ctl.kernel, ctl.usetpu = kernel, 1
+    obs, atm = read_obs(d / "obs.tab", ctl), read_atm(d / "atm.tab", ctl)
+    t0 = time.perf_counter()
+    fm = ForwardModel(ctl, directory=str(d), device=dev,
+                      dtype=torch.float64)
+    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+    fm.formod(atm, obs)
+    launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+    dt = time.perf_counter() - t0
+    want = "exact" if kernel == "exact" else "fast"
+    if (fm.last_variant != want or fm.device.type != "cuda"
+            or launches != (0, 0)):
+        fail(f"golden {case} ({kernel}): ran {fm.last_variant} on "
+             f"{fm.device}, fused launches {launches}")
+    ref = np.loadtxt(d / ("rad_fov.tab" if case == "fov" else "rad.tab"))
+    nd = ctl.nd
+    rad_ref, tau_ref = ref[:, 10:10 + nd], ref[:, 10 + nd:10 + 2 * nd]
+    rad_bar, tau_bar, tp_bar = EAGER_GOLDENS[case]
+    if kernel != "exact":
+        rad_bar = tau_bar = 2e-3
+    if case == "flagship":
+        scales = [(sl, np.abs(rad_ref[:, sl]).max()) for sl in FLAGSHIP_BANDS]
+    elif case == "gas30":
+        scales = [(slice(j, j + 1), np.abs(rad_ref[:, j]).max())
+                  for j in range(nd)]
+    else:
+        scales = [(slice(None), np.abs(rad_ref).max())]
+    e_rad = max(np.abs(obs.rad[:, sl] - rad_ref[:, sl]).max() / sc
+                for sl, sc in scales)
+    e_tau = np.abs(obs.tau - tau_ref).max()
+    e_tp = 0.0 if tp_bar is None else max(
+        np.abs(obs.tpz - ref[:, 7]).max(), np.abs(obs.tplat - ref[:, 9]).max())
+    print(f"eager golden {case} ({kernel}, float64 on the card): "
+          f"{obs.nr} rays x {nd} channels x {ctl.ng} gases; rad "
+          f"{e_rad:.3e} of max|rad| (bar {rad_bar}), tau {e_tau:.3e} (bar "
+          f"{tau_bar}), tangent points {e_tp:.3e} (bar {tp_bar}); "
+          f"{dt:.1f} s with the table load", flush=True)
+    if not (np.isfinite(obs.rad).all() and e_rad <= rad_bar
+            and e_tau <= tau_bar and (tp_bar is None or e_tp <= tp_bar)):
+        fail(f"golden {case} ({kernel}): the eager pipeline misses the "
+             "JAX package's bar")
+
+
+def device_profile(torch, fn):
+    """(device kernel launches, device busy ms) of ``fn()`` under
+    torch.profiler with CUDA activity only (recording the host's operators
+    too slows a launch-bound pass ten times over)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ks) / 1e3
+    if not ks or busy <= 0:
+        fail("the profiler recorded no device time")
+    return sum(e.count for e in ks), busy
+
+
+def device_pass(torch, fn):
+    """(result, milliseconds on the host clock to a synchronise, device
+    kernel launches and busy ms) of ``fn()``: one timed call, one
+    profiled call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (out, ms, *device_profile(torch, fn))
+
+
+def eager_vs_table(torch, ForwardModel, flagship, fm_p, dev):
+    """At the flagship: one float64 trace, the eager ``jax`` pipeline in
+    float64 against the table kernel on the same LOS cast to float32."""
+    from jurassic_torch.geometry import LosData
+    ctl, ft, atm, obs = flagship()
+    ctl.usetpu, ctl.kernel = 1, "jax"
+    fm_e = ForwardModel(ctl, fast_tables=ft, device=dev,
+                        dtype=torch.float64)
+    los64 = fm_e.trace(atm, obs)
+    los32 = LosData(*(f.float() if f.is_floating_point() else f
+                      for f in los64))
+    out_e, ms_e, n_e, busy_e = device_pass(torch,
+                                           lambda: fm_e.integrate(los64))
+    out_t, ms_t, n_t, busy_t = device_pass(torch,
+                                           lambda: fm_p.integrate(los32))
+    scale = float(out_e.rad.abs().max())
+    e_rad = float((out_t.rad.double() - out_e.rad).abs().max()) / scale
+    e_tau = float((out_t.tau.double() - out_e.tau).abs().max())
+    print(f"flagship eager jax pipeline (float64) vs table kernel (float32, "
+          f"the same LOS cast): rad {e_rad:.3e} of max|rad| {scale:.4e}, "
+          f"tau {e_tau:.3e} (bar {EAGER_VS_TABLE_TOL})", flush=True)
+    print(f"flagship RT pass: eager float64 {ms_e:.1f} ms, {n_e} device "
+          f"launches, device busy {busy_e:.1f} ms; table kernel + epilogue "
+          f"{ms_t:.2f} ms, {n_t} device launches, device busy "
+          f"{busy_t:.2f} ms", flush=True)
+    if not (fm_e.last_variant == "fast" and out_e.rad.dtype == torch.float64
+            and e_rad <= EAGER_VS_TABLE_TOL and e_tau <= EAGER_VS_TABLE_TOL):
+        fail("the eager float64 pipeline and the table kernel disagree")
+    return fm_e, ms_e, n_e
+
+
+def memory_check(torch, fm, atm, obs, label: str) -> None:
+    """The sizing estimate of a one-package formod against the measured
+    peak of the allocator (tables excluded, as in the estimate)."""
+    R = obs.nr
+    ctl = fm.ctl
+    pack0, ctl.raypack = ctl.raypack, -1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(fm.device)
+    base = torch.cuda.memory_allocated(fm.device)
+    fm.formod(atm.copy(), obs.copy())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(fm.device) - base
+    ctl.raypack = pack0
+    est = fm.per_ray_device_bytes() * R
+    print(f"sizing {label}: estimate {fm.per_ray_device_bytes()} B/ray x "
+          f"{R} rays = {est / 1e6:.1f} MB; measured one-package peak "
+          f"{peak / 1e6:.1f} MB ({est / max(peak, 1):.2f} x)", flush=True)
+    if est < peak:
+        fail(f"sizing {label}: the estimate undercuts the measured peak")
+
+
+def packaged_runs(torch, ega_fused, fm, atm, obs, label: str, variant: str,
+                  per_call: tuple, mono_wall: float):
+    """``RAYPACK`` packages against the one-package run of the same model:
+    bit for bit, ``per_call`` (turbo, table) launches per formod, and the
+    median beside the one-package median.  Returns the packaged median."""
+    import numpy as np
+    ctl = fm.ctl
+    ctl.raypack = -1
+    o_m = obs.copy()
+    fm.formod(atm.copy(), o_m)
+    ctl.raypack = RAYPACK
+    npk = -(-obs.nr // fm.package_size(obs.nr))
+    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+    walls = []
+    for _ in range(N_PACKAGED_RUNS):
+        o_p = obs.copy()
+        t0 = time.perf_counter()
+        fm.formod(atm.copy(), o_p)
+        walls.append(time.perf_counter() - t0)
+    launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+    ctl.raypack = 0
+    n = N_PACKAGED_RUNS
+    wall = statistics.median(walls)
+    print(f"{label} with RAYPACK {RAYPACK} ({npk} packages of "
+          f"{fm.package_size(obs.nr, RAYPACK)} rays, two streams): median "
+          f"{wall * 1e3:.1f} ms over {n} runs (min {min(walls) * 1e3:.1f}, "
+          f"max {max(walls) * 1e3:.1f}) beside {mono_wall * 1e3:.1f} ms as "
+          f"one package; launches turbo {launches[0]} table {launches[1]} "
+          f"over {n} calls; variant {fm.last_variant}", flush=True)
+    if npk != 4 or launches != (per_call[0] * n, per_call[1] * n):
+        fail(f"{label}: {npk} packages, launches {launches}, expected "
+             f"{per_call} per call")
+    if fm.last_variant != variant:
+        fail(f"{label}: ran {fm.last_variant}, expected {variant}")
+    for f in ("rad", "tau", "tpz", "tplon", "tplat"):
+        if not np.array_equal(getattr(o_p, f), getattr(o_m, f)):
+            fail(f"{label}: packaged {f} differs from the one-package run")
+    return wall
+
+
+def idle_share(torch, fm, atm, obs, wall_ms: float, label: str) -> None:
+    """The device's busy and idle share of one formod, taken of the
+    median formod time without the profiler."""
+    n, busy = device_profile(torch, lambda: fm.formod(atm.copy(),
+                                                      obs.copy()))
+    print(f"{label}: device busy {busy:.1f} ms of the {wall_ms:.1f} ms "
+          f"median, idle share {1 - busy / wall_ms:.1%}; {n} device kernel "
+          "launches", flush=True)
+
+
+def track_atm(atm, nlat: int = 3):
+    """``nlat`` copies of the 1-D profile ``atm`` at latitudes -4, 0, 4:
+    a satellite track whose profiles are identical
+    (tests/test_interp_atm.py:15-31 with equal temperatures)."""
+    import numpy as np
+    from jurassic_torch.io_tab import Atm
+    n = atm.npts
+    out = Atm.zeros(n * nlat, atm.q.shape[0], atm.k.shape[0])
+    for j in range(nlat):
+        sl = slice(j * n, (j + 1) * n)
+        out.z[sl], out.lat[sl], out.lon[sl] = atm.z, -4.0 + 4.0 * j, 0.0
+        out.p[sl], out.t[sl] = atm.p, atm.t
+        out.q[:, sl], out.k[:, sl] = atm.q, atm.k
+    out.time[:] = atm.time[0]
+    return out
+
+
+def pencil_phase(torch, ega_fused, ForwardModel, flagship, tt, stats, dev):
+    """IP = 2 and IP = 3 at the flagship width against IP = 1 on
+    identical profiles, REFRAC 0, through the turbo kernel."""
+    import dataclasses
+    import numpy as np
+    from jurassic_torch.forward import _obs_rows
+    ctl, ft, atm, obs = flagship()
+    ctl.usetpu, ctl.refrac = 1, 0
+    obs = _obs_rows(obs, slice(None, None, 8))
+    fm1 = ForwardModel(ctl, fast_tables=ft, turbo_tables=tt,
+                       turbo_stats=stats, device=dev)
+    o1 = obs.copy()
+    fm1.formod(atm.copy(), o1)
+    scale = np.abs(o1.rad).max()
+    for ip in (2, 3):
+        ctl_i = dataclasses.replace(ctl, ip=ip, cz=2.0, cx=8000.0)
+        fm = ForwardModel(ctl_i, fast_tables=ft, turbo_tables=tt,
+                          turbo_stats=stats, device=dev)
+        o = obs.copy()
+        ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+        t0 = time.perf_counter()
+        fm.formod(track_atm(atm), o)
+        dt = time.perf_counter() - t0
+        launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+        err = np.abs(o.rad - o1.rad).max() / scale
+        print(f"pencil IP = {ip}: {obs.nr} rays x {ctl.nd} channels x "
+              f"{ctl.ng} gases on a 3-profile track, vs IP = 1: "
+              f"{err:.3e} of max|rad| (bar {PENCIL_TOL[ip]}); launches turbo "
+              f"{launches[0]} table {launches[1]}; {dt * 1e3:.0f} ms",
+              flush=True)
+        if not (launches == (1, 0) and fm.last_variant == "turbo"
+                and np.isfinite(o.rad).all() and err <= PENCIL_TOL[ip]):
+            fail(f"pencil IP = {ip} failed")
 
 
 def main() -> None:
@@ -506,6 +844,10 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     phase("build")
+    # the two flagship turbo fits (host NumPy, about a minute each) run in
+    # worker processes while nvcc builds the kernels and the probes run
+    fits = ProcessPoolExecutor(2, mp_context=get_context("spawn"))
+    fit_jobs = [fits.submit(fit_flagship, rough) for rough in (False, True)]
     t0 = time.perf_counter()
     _build.load_library()
     print(f"kernel build + load {time.perf_counter() - t0:.1f} s "
@@ -518,14 +860,20 @@ def main() -> None:
     rates, probe_records = probe_phase(torch, peak, dev)
 
     phase("flagship set-up")
-    cache = REPO / "jurassic_torch" / "_build" / "turbo_cache"
+    t0 = time.perf_counter()
+    fit_s = [job.result() for job in fit_jobs]
+    fits.shutdown()
+    print(f"turbo fits (or cache loads) in worker processes: "
+          f"{fit_s[0]:.1f} s and {fit_s[1]:.1f} s (roughened), waited "
+          f"{time.perf_counter() - t0:.1f} s for them here", flush=True)
+    cache = FIT_CACHE
     ctl, ft, atm, obs = flagship()
     ctl.usetpu = 1
     if ctl.kernel != "auto":
         fail(f"flagship runs KERNEL = {ctl.kernel}, expected auto")
     t0 = time.perf_counter()
     tt, stats = build_turbo_tables_cached(ft, cache, dev)
-    print(f"turbo fit (or cache load) {time.perf_counter() - t0:.1f} s: "
+    print(f"turbo cache load {time.perf_counter() - t0:.1f} s: "
           f"{stats}", flush=True)
     fm = ForwardModel(ctl, fast_tables=ft, turbo_tables=tt,
                       turbo_stats=stats, device=dev)
@@ -542,18 +890,10 @@ def main() -> None:
           f"{tuple(fm_p.table_tbl.eps_aug.shape)} (four rows to a float4; "
           f"packed in "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    # the roughened flagship: a staircase the Chebyshev fit cannot follow
-    # (tests/test_pallas_kernel.py:381-389) in three cells
-    eps = np.array(ft.eps)
-    rng = np.random.default_rng(ROUGH_SEED)
-    stair = np.cumsum(rng.uniform(0, 1, eps.shape[3]) ** 8)
-    stair = (0.1 + 0.8 * stair / stair[-1]).astype(np.float32)
-    for (ip, it) in ROUGH_CELLS:
-        eps[ROUGH_GAS, ip, it, :, ROUGH_CHANNEL] = stair
-    ft_r = ft._replace(eps=eps)
+    ft_r = roughen(ft)
     t0 = time.perf_counter()
     tt_r, stats_r = build_turbo_tables_cached(ft_r, cache, dev)
-    print(f"roughened flagship: turbo fit (or cache load) "
+    print(f"roughened flagship: turbo cache load "
           f"{time.perf_counter() - t0:.1f} s: {stats_r}, n_bad "
           f"{tt_r.n_bad}", flush=True)
     if not (0 < tt_r.n_bad and tt_r.n_bad / stats_r.rows <= 0.05):
@@ -565,7 +905,7 @@ def main() -> None:
     if fm_h.table_tbl is None:
         fail("the hybrid model has no exact backing")
     fm_rp = ForwardModel(ctl_p, fast_tables=ft_r, device=dev)
-    del eps, ft_r
+    del ft_r
 
     phase("turbo kernel vs plain version")
     los = fm.trace(atm.copy(), obs.copy())
@@ -663,7 +1003,8 @@ def main() -> None:
     phase("goldens through the port's CLI")
     for kernel in ("turbo", "pallas"):
         for case in ("ega", "nadir"):
-            run_golden(case, kernel)
+            run_golden(case, kernel,
+                       bench=3 if (case, kernel) == ("ega", "turbo") else 0)
 
     phase("flagship formod (KERNEL = auto)")
     wall, rad, launches = timed_formod(
@@ -725,6 +1066,44 @@ def main() -> None:
                  "tainted lanes and the turbo kernel's elsewhere")
 
     profile_formod(torch, fm, atm, obs, wall * 1e3)
+
+    phase("eager oracles (float64 on the card)")
+    for case in EAGER_GOLDENS:
+        eager_golden(torch, ega_fused, ForwardModel, dev, case, "exact")
+    eager_golden(torch, ega_fused, ForwardModel, dev, "ega", "fast")
+    fm_e, ms_e, n_e = eager_vs_table(torch, ForwardModel, flagship, fm_p,
+                                     dev)
+
+    phase("ray packages (RAYPACK)")
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"RAYPACK 0 at the flagship: {fm.per_ray_device_bytes()} B/ray "
+          f"(auto), {fm_p.per_ray_device_bytes()} (pallas), "
+          f"{fm_h.per_ray_device_bytes()} (hybrid), "
+          f"{fm_e.per_ray_device_bytes()} (eager jax, float64); "
+          f"{free / 1e9:.2f} GB free of {total / 1e9:.2f} GB; "
+          f"{fm.package_size(R) or R} rays per package", flush=True)
+    for m, label in ((fm, "auto"), (fm_p, "pallas"), (fm_h, "hybrid"),
+                     (fm_e, "eager jax float64")):
+        memory_check(torch, m, atm, obs, label)
+    del fm_e
+    pk = RAYPACK
+    tainted = {int(r) // pk for r in taint_k.any(dim=1).nonzero()[:, 0]}
+    print(f"hybrid: tainted lanes in {len(tainted)} of 4 packages",
+          flush=True)
+    wall_pk = packaged_runs(torch, ega_fused, fm, atm, obs,
+                            "flagship formod auto", "turbo", (4, 0), wall)
+    packaged_runs(torch, ega_fused, fm_p, atm, obs, "flagship formod pallas",
+                  "table", (0, 4), wall_p)
+    packaged_runs(torch, ega_fused, fm_h, atm, obs, "flagship formod hybrid",
+                  "turbo+hybrid", (4, len(tainted)), wall_h)
+    fm.ctl.raypack = RAYPACK
+    idle_share(torch, fm, atm, obs, wall_pk * 1e3,
+               f"flagship formod auto, RAYPACK {RAYPACK}")
+    fm.ctl.raypack = 0
+
+    phase("pencil (IP = 2/3)")
+    pencil_phase(torch, ega_fused, ForwardModel, flagship, tt, stats, dev)
+
     import_hygiene()
 
     print(card, flush=True)
@@ -734,12 +1113,16 @@ def main() -> None:
          "source": "jurassic_torch/csrc/ega_fused_turbo.cu",
          "replaces": "jurassic_tpu/ops/pallas/ega_fused.py:1135",
          "launches": launches[0],
+         "launches_on": f"flagship formod KERNEL = auto, one package, "
+                        f"{N_FORMOD_RUNS + 1} calls",
          "max_abs_err": max(err, err9, err_s, err_h),
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by},
         {"name": "ega_fused_table", **fused,
          "source": "jurassic_torch/csrc/ega_fused_table.cu",
          "replaces": "jurassic_tpu/ops/pallas/ega_fused.py:859",
          "launches": launches_p[1],
+         "launches_on": f"flagship formod KERNEL = pallas, one package, "
+                        f"{N_FORMOD_RUNS + 1} calls",
          "max_abs_err": max(err_t, err_t9, err_ts),
          "ms": kt_ms, "plain_ms": pt_ms, "bound_ms": bt_ms,
          "bound_by": bt_by},

@@ -11,5 +11,7 @@ The fused EGA radiative-transfer pass runs as hand-written CUDA kernels
 (``csrc/ega_fused_turbo.cu``, ``csrc/ega_fused_table.cu``) on CUDA
 tensors and as their plain PyTorch versions on CPU tensors;
 ``tools.peak`` measures the card's FP32, special-function and memory
-rates with CUDA probes (``csrc/peak_probes.cu``).
+rates with CUDA probes (``csrc/peak_probes.cu``).  The eager pipeline
+(``KERNEL = exact|jax|fast``: ``ops.ega``, ``forward.rt_integrate``) is
+plain PyTorch in the model's dtype, the oracle the kernels answer to.
 """

@@ -1,0 +1,25 @@
+"""Convert brightness temperature to radiance (mirror of planck.c).
+
+Usage: ``python -m jurassic_torch.cli.planck <t> <nu>``
+
+The port's own copy of ``jurassic_tpu/cli/planck.py``.
+"""
+from __future__ import annotations
+
+import sys
+
+from ..ops.planck import planck
+from ._common import cli_main, die
+
+
+@cli_main
+def main(argv=None) -> int:
+    argv = list(sys.argv if argv is None else argv)
+    if len(argv) < 3:
+        die("Give parameters: <t> <nu>")
+    print("%.10g" % planck(float(argv[1]), float(argv[2])))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -129,9 +129,10 @@ def ray_window_indices(atm: Atm, obs: Obs):
 def build_ray_profiles(ctl: Ctl, atm: Atm, obs: Obs,
                        dtype=torch.float64, device="cpu") -> RayProfiles:
     if ctl.ip != 1:
-        raise NotImplementedError(
-            "Only IP = 1 (vertical profile) is ported; the IP = 2/3 pencil "
-            "path is a later item (ROADMAP.md, section 1, 'What waits')")
+        raise ValueError(
+            "the tracer's profiles are vertical (IP = 1, as on the "
+            "reference's device path, jr_common.h:573,581); ForwardModel "
+            "runs IP = 2/3 through its host pencil path (pencil_trace)")
     nr = obs.nr
     idx, cnt, gi = ray_window_indices(atm, obs)
     L = gi.shape[1]

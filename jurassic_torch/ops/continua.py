@@ -1,13 +1,15 @@
-"""Per-channel continuum coefficients (port of
-``jurassic_tpu/ops/continua.py:33-126``).
+"""Continuum absorption for CO2, H2O, N2 and O2 (port of
+``jurassic_tpu/ops/continua.py``).
 
 Every wavenumber-dependent coefficient of continua_ctm{co2,h2o,n2,o2}
 (jr_common.h:316-390) depends only on the static channel grid, so it is
-precomputed on the host in float64 NumPy.  The runtime arithmetic lives
-in the fused EGA pass (``ops/ega_fused.py``), which reads these
-coefficients packed as rows (``pack_continua``).  The coefficient data is
-the package's own ``data/continua.npz`` (a byte copy of the JAX
-package's).
+precomputed on the host in float64 NumPy (:func:`precompute_continua`).
+The runtime arithmetic exists twice: in the fused EGA pass
+(``ops/ega_fused.py``, float32, coefficients packed as rows by
+``pack_continua``) and here (:func:`beta_ds`, elementwise tensor code in
+the dtype of its inputs), which the eager pipeline
+(``forward.rt_integrate``) runs.  The coefficient data is the package's
+own ``data/continua.npz`` (a byte copy of the JAX package's).
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ from typing import NamedTuple
 
 import numpy as np
 
+import torch
+
 from ..config import Ctl
+from ..constants import NA, P0
 
 _DATA = Path(__file__).resolve().parent.parent / "data" / "continua.npz"
 
@@ -122,3 +127,79 @@ def precompute_continua(ctl: Ctl) -> ContinuaCoeffs:
         h2o_ctwfrn=h2o_ctwfrn, h2o_sfac=sfac, h2o_nu=nu,
         n2_mask=n2_mask, n2_b=n2_b, n2_beta=n2_beta,
         o2_mask=o2_mask, o2_b=o2_b, o2_beta=o2_beta)
+
+
+def continua_to_device(cc: ContinuaCoeffs, dtype, device) -> ContinuaCoeffs:
+    """The coefficients as tensors of ``dtype`` on ``device`` (the masks
+    as bool), for :func:`beta_ds`."""
+    def ten(a):
+        a = np.asarray(a)
+        t = torch.from_numpy(np.array(a))
+        return t.to(device) if a.dtype == bool else t.to(device, dtype)
+    return ContinuaCoeffs(*(ten(f) for f in cc))
+
+
+def continua_co2(cc, p, t, u_co2):
+    """CO2 continuum optical depth (jr_common.h:316-331).
+    p, t, u_co2 broadcast against the [D] coefficients."""
+    dt230 = t - 230.0
+    dt260 = t - 260.0
+    dt296 = t - 296.0
+    ctw = (dt260 * 5.050505e-4 * dt296 * cc.co2_cw230
+           - dt230 * 9.259259e-4 * dt296 * cc.co2_cw260
+           + dt230 * 4.208754e-4 * dt260 * cc.co2_cw296)
+    return u_co2 * p * ctw / (NA * 1000.0 * P0)
+
+
+def continua_h2o(cc, p, t, q_h2o, u_h2o):
+    """H2O self+foreign continuum optical depth (jr_common.h:334-362)."""
+    ctwslf = cc.h2o_sfac * cc.h2o_cw296 * torch.pow(
+        torch.where(cc.h2o_cw296 > 0, cc.h2o_cw260 / torch.where(
+            cc.h2o_cw296 > 0, cc.h2o_cw296, 1.0), 1.0),
+        (296.0 - t) / (296.0 - 260.0))
+    a1 = cc.h2o_nu * u_h2o * torch.tanh(0.7193876 / t * cc.h2o_nu)
+    a2 = 296.0 / t
+    a3 = p / P0 * (q_h2o * ctwslf + (1 - q_h2o) * cc.h2o_ctwfrn) * 1e-20
+    return torch.where(cc.h2o_mask, a1 * a2 * a3, 0.0)
+
+
+def _n2o2_core(b, beta, p, t, qgas, mix):
+    t0, tr = 273.0, 296.0
+    return (0.1 * (p / P0) ** 2 * (t0 / t) ** 2
+            * torch.exp(beta * (1 / tr - 1 / t)) * qgas * b * mix)
+
+
+def continua_n2(cc, p, t):
+    """N2 absorption coefficient [1/km] (jr_common.h:365-376)."""
+    q_n2 = 0.79
+    mix = q_n2 + (1 - q_n2) * (1.294 - 0.4545 * t / 296.0)
+    val = _n2o2_core(cc.n2_b, cc.n2_beta, p, t, q_n2, mix)
+    return torch.where(cc.n2_mask, val, 0.0)
+
+
+def continua_o2(cc, p, t):
+    """O2 absorption coefficient [1/km] (jr_common.h:379-390)."""
+    val = _n2o2_core(cc.o2_b, cc.o2_beta, p, t, 0.21, 1.0)
+    return torch.where(cc.o2_mask, val, 0.0)
+
+
+def beta_ds(ctl_flags, cc, window_k, ds, p, t, q_h2o, u_co2, u_h2o):
+    """Total extinction optical depth per segment and channel
+    (continua_core, jr_common.h:397-409): gray extinction + enabled
+    continua.  ctl_flags = (co2, h2o, n2, o2) booleans; ``cc`` holds
+    tensors (:func:`continua_to_device`).
+
+    Inputs are broadcastable to [..., 1] against per-channel coefficients
+    [D]; returns [..., D].
+    """
+    co2, h2o, n2, o2 = ctl_flags
+    total = window_k * ds
+    if co2:
+        total = total + continua_co2(cc, p, t, u_co2)
+    if h2o:
+        total = total + continua_h2o(cc, p, t, q_h2o, u_h2o)
+    if n2:
+        total = total + continua_n2(cc, p, t) * ds
+    if o2:
+        total = total + continua_o2(cc, p, t) * ds
+    return total

@@ -1,0 +1,286 @@
+"""Emissivity Growth Approximation core of the eager pipeline (port of
+``jurassic_tpu/ops/ega.py``).
+
+Two implementations of ega_eps (jr_common.h:238-268), plain tensor code
+batched over [rays, gases, channels]:
+
+* :func:`ega_eps_exact` -- reference-faithful semantics on the ragged
+  padded tables: interval searches replicate locate_id/locate_tbl_id
+  (jr_common.h:107-125) as masked compare-sums within each row's count,
+  interpolation extrapolates linearly at both ends exactly like ``lip``
+  on the clamped index.  With float64 inputs this is the in-repo oracle
+  (``KERNEL = exact``).
+* :func:`ega_eps_fast` -- the same on :class:`~jurassic_torch.tables.
+  FastTables` (``KERNEL = jax|fast``): u-axis positions from log2
+  arithmetic on the exact log-uniform grid (the legitimised
+  FAST_INVERSE_OF_U, jurassic.c:487-609), the eps->u inversion by a
+  binary search of ``ceil(log2 K)`` steps.
+
+The JAX package vmaps both over rays; here the ray axis is the leading
+axis of every argument.  The device tables keep each searched axis last
+(see the container fields), so one gathered row is ``[R, G, D, N]``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constants import TAU_OPAQUE
+from ..tables import LOG2_RATIO_U, EgaTables, FastTables
+
+
+def _c01(x):
+    """Clamp to [0,1] (c01, jr_common.h:43-45)."""
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _lip(x0, y0, x1, y1, x):
+    """Linear interpolation with a guarded denominator; extrapolates like
+    the reference ``lip`` (jr_common.h:48-50)."""
+    d = x1 - x0
+    d = torch.where(d == 0, 1.0, d)
+    return y0 + (x - x0) * (y1 - y0) / d
+
+
+def _count_index(values, counts, x):
+    """ilo = clip(#{values <= x within count} - 1, 0, count - 2): the
+    branch-free form of the ascending binary searches locate_id /
+    locate_tbl_id (jr_common.h:107-125), over the last axis of
+    ``values``.  Only the first ``count`` entries of a row are counted:
+    the tables are ragged and padded, and nothing is assumed of the
+    padding."""
+    iota = torch.arange(values.shape[-1], device=values.device)
+    below = (values <= x.unsqueeze(-1)) & (iota < counts.unsqueeze(-1))
+    idx = below.sum(-1) - 1
+    return torch.minimum(idx.clamp_min(0), (counts - 2).clamp_min(0))
+
+
+def _last(arr, idx):
+    """arr[..., idx] per row, the index clipped into the last axis."""
+    idx = idx.clamp(0, arr.shape[-1] - 1)
+    return torch.gather(arr, -1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def _cell(arr, gi, i, di):
+    """arr[g, i, ..., d] with the index i [R, G, D] clipped into axis 1."""
+    return arr[gi, i.clamp(0, arr.shape[1] - 1), di]
+
+
+class EgaDeviceTables(NamedTuple):
+    """EgaTables on the device, payloads f32 (real_tblND_t,
+    jurassic.h:387), axes in f64 like the reference; the searched axis
+    of each field last."""
+
+    np_: torch.Tensor   # [G, D]
+    nt: torch.Tensor    # [G, P, D]
+    nu: torch.Tensor    # [G, P, T, D]
+    p: torch.Tensor     # [G, D, P]
+    t: torch.Tensor     # [G, P, D, T]
+    u: torch.Tensor     # [G, P, T, D, U]
+    eps: torch.Tensor   # [G, P, T, D, U]
+
+
+class FastDeviceTables(NamedTuple):
+    """FastTables on the device (payloads f32); ``p`` and ``t`` with the
+    searched axis last, the rest in the FastTables layout."""
+
+    np_: torch.Tensor      # [G, D]
+    nt: torch.Tensor       # [G, P, D]
+    p: torch.Tensor        # [G, D, P]
+    t: torch.Tensor        # [G, P, D, T]
+    nu: torch.Tensor       # [G, P, T, D]
+    log2_u0: torch.Tensor  # [G, P, T, D]
+    eps: torch.Tensor      # [G, P, T, K, D]
+    valid: torch.Tensor    # [G, P, T, D] bool
+
+
+def _ten(a, device):
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def ega_tables_to_device(tbl: EgaTables, device) -> EgaDeviceTables:
+    """Upload the padded exact tables (``forward.py:51-57`` of the JAX
+    package), transposed so that each searched axis is last."""
+    def t(a, *perm):
+        return _ten(a, device).permute(*perm).contiguous()
+    return EgaDeviceTables(
+        np_=_ten(tbl.np_, device).long(), nt=_ten(tbl.nt, device).long(),
+        nu=_ten(tbl.nu, device).long(), p=t(tbl.p, 0, 2, 1),
+        t=t(tbl.t, 0, 1, 3, 2), u=t(tbl.u, 0, 1, 2, 4, 3),
+        eps=t(tbl.eps, 0, 1, 2, 4, 3))
+
+
+def fast_tables_to_device(tbl: FastTables, device) -> FastDeviceTables:
+    """Upload FastTables (``forward.py:60-65`` of the JAX package)."""
+    def t(a, *perm):
+        return _ten(a, device).permute(*perm).contiguous()
+    return FastDeviceTables(
+        np_=_ten(tbl.np_, device).long(), nt=_ten(tbl.nt, device).long(),
+        p=t(tbl.p, 0, 2, 1), t=t(tbl.t, 0, 1, 3, 2),
+        nu=_ten(tbl.nu, device).long(), log2_u0=_ten(tbl.log2_u0, device),
+        eps=_ten(tbl.eps, device), valid=_ten(tbl.valid, device))
+
+
+def _brackets(tbl, p, t, G, D):
+    """Pressure level and temperature rows of every (ray, gas, channel):
+    (ipr, t_lo, t_hi, nt_lo, nt_hi, it0, it1, pb, tb) with the
+    row-valued ones [R, G, D, T] and the rest [R, G, D]."""
+    R = p.shape[0]
+    dev = p.device
+    gi = torch.arange(G, device=dev).view(1, G, 1)
+    di = torch.arange(D, device=dev).view(1, 1, D)
+    pb = p.view(R, 1, 1).expand(R, G, D)
+    tb = t.view(R, 1, 1).expand(R, G, D)
+    ipr = _count_index(tbl.p.unsqueeze(0), tbl.np_, pb)
+    t_lo = _cell(tbl.t, gi, ipr, di)
+    t_hi = _cell(tbl.t, gi, ipr + 1, di)
+    nt_lo = _cell(tbl.nt, gi, ipr, di)
+    nt_hi = _cell(tbl.nt, gi, ipr + 1, di)
+    it0 = _count_index(t_lo, nt_lo, tb)
+    it1 = _count_index(t_hi, nt_hi, tb)
+    return gi, di, ipr, t_lo, t_hi, nt_lo, nt_hi, it0, it1, pb, tb
+
+
+def _factor(tau_path, eps_t, no_table):
+    """tau_path's update factor with the guards in reference order
+    (jr_common.h:239-246)."""
+    opaque = tau_path < TAU_OPAQUE
+    tau_safe = torch.where(opaque, 1.0, tau_path)
+    factor = (1.0 - eps_t) / tau_safe
+    factor = torch.where(no_table, 1.0, factor)
+    return torch.where(opaque, 0.0, factor).to(tau_path.dtype)
+
+
+def ega_eps_exact(tbl: EgaDeviceTables, tau_path, t, u_seg, p):
+    """Exact EGA emissivity factor for one LOS segment of every ray.
+
+    Args:
+      tbl: device tables (:func:`ega_tables_to_device`).
+      tau_path: accumulated per-gas transmittance [R, G, D].
+      t, p: segment temperature / pressure [R].
+      u_seg: per-gas segment column density [R, G].
+
+    Returns: factor [R, G, D] such that tau_path *= factor
+    (ega_eps, jr_common.h:238-268).  Each corner materialises its u and
+    eps rows [R, G, D, U].
+    """
+    G, P, T, D, U = tbl.u.shape
+    dtype = tau_path.dtype
+    (gi, di, ipr, t_lo, t_hi, nt_lo, nt_hi, it0, it1, pb,
+     tb) = _brackets(tbl, p, t, G, D)
+    eps_target = 1.0 - tau_path                              # [R, G, D]
+    u_add = u_seg.to(dtype).unsqueeze(-1)
+
+    def corner(dp, it):
+        """One (pressure, temperature) corner: invert eps->u, add the
+        segment's u, re-look-up eps (jr_common.h:249-257)."""
+        pc = (ipr + dp).clamp(0, P - 1)
+        ic = it.clamp(0, T - 1)
+        u_row = tbl.u[gi, pc, ic, di].to(dtype)              # [R, G, D, U]
+        e_row = tbl.eps[gi, pc, ic, di].to(dtype)
+        n_u = tbl.nu[gi, pc, ic, di]                         # [R, G, D]
+        # get_u (jr_common.h:180-185)
+        i = _count_index(e_row, n_u, eps_target)
+        u_c = _lip(_last(e_row, i), _last(u_row, i), _last(e_row, i + 1),
+                   _last(u_row, i + 1), eps_target)
+        # get_eps at u_c + u_seg (jr_common.h:157-177)
+        u_new = u_c + u_add
+        j = _count_index(u_row, n_u, u_new)
+        eps_c = _c01(_lip(_last(u_row, j), _last(e_row, j),
+                          _last(u_row, j + 1), _last(e_row, j + 1), u_new))
+        return eps_c, n_u >= 2
+
+    eps00, ok00 = corner(0, it0)
+    eps01, ok01 = corner(0, it0 + 1)
+    eps10, ok10 = corner(1, it1)
+    eps11, ok11 = corner(1, it1 + 1)
+
+    # bilinear: t within each pressure row, then p (jr_common.h:259-265)
+    eps_p0 = _c01(_lip(_last(t_lo, it0), eps00, _last(t_lo, it0 + 1), eps01,
+                       tb))
+    eps_p1 = _c01(_lip(_last(t_hi, it1), eps10, _last(t_hi, it1 + 1), eps11,
+                       tb))
+    pr = tbl.p.unsqueeze(0).expand(p.shape[0], G, D, -1)
+    eps_t = _c01(_lip(_last(pr, ipr), eps_p0, _last(pr, ipr + 1), eps_p1,
+                      pb))
+    no_table = ((tbl.np_ < 2) | (nt_lo < 2) | (nt_hi < 2)
+                | ~ok00 | ~ok01 | ~ok10 | ~ok11)
+    return _factor(tau_path, eps_t, no_table)
+
+
+def ega_eps_fast(tbl: FastDeviceTables, tau_path, t, u_seg, p):
+    """Fast-mode EGA factor on log-uniform resampled tables; same
+    contract as :func:`ega_eps_exact`.
+
+    The eps->u inversion (get_u, jr_common.h:180-185) is a binary search
+    on the eps row -- ``ceil(log2 K)`` single-element gathers, a fixed
+    count of steps (JAX rolls them in a ``fori_loop``) -- with u values
+    reconstructed from the log-uniform grid.  The u->eps lookup (get_eps,
+    jr_common.h:157-177) is index arithmetic.  All four (p, T) corners
+    run on one axis: [R, G, 4, D]."""
+    G, P, T, K, D = tbl.eps.shape
+    dtype = tau_path.dtype
+    eps_flat = tbl.eps.reshape(G, P * T * K, D)
+    l2u0_flat = tbl.log2_u0.reshape(G, P * T, D)
+    nu_flat = tbl.nu.reshape(G, P * T, D)
+    valid_flat = tbl.valid.reshape(G, P * T, D)
+    (gi, di, ipr, t_lo, t_hi, nt_lo, nt_hi, it0, it1, pb,
+     tb) = _brackets(tbl, p, t, G, D)
+    eps_target = 1.0 - tau_path                              # [R, G, D]
+    ratio = 2.0 ** LOG2_RATIO_U
+
+    # corner axis: [(p0,t0), (p0,t0+1), (p1,t1), (p1,t1+1)] -> [R, G, 4, D]
+    ipt = torch.stack([ipr * T + it0, ipr * T + it0 + 1,
+                       (ipr + 1) * T + it1, (ipr + 1) * T + it1 + 1], dim=2)
+    # out-of-range cells and rows (only where a gas has no table, whose
+    # factor the guards set to 1) read the nearest in range
+    g4, d4 = gi.unsqueeze(-1), di.unsqueeze(-2)
+    cell = ipt.clamp(0, P * T - 1)
+    l2u0 = l2u0_flat[g4, cell, d4].to(dtype)
+    nk = nu_flat[g4, cell, d4]
+    ok = valid_flat[g4, cell, d4]
+    base_k = ipt * K
+
+    def gather(i):
+        return eps_flat[g4, (base_k + i).clamp(0, P * T * K - 1),
+                        d4].to(dtype)
+
+    target4 = eps_target.unsqueeze(2).expand(ipt.shape)
+
+    # invert: u at accumulated eps (locate_tbl_id, jr_common.h:117-125),
+    # one binary search over all corners at once
+    lo = torch.zeros_like(nk)
+    hi = (nk - 1).clamp_min(1)
+    for _ in range(max(1, int(np.ceil(np.log2(max(K, 2)))))):
+        active = hi > lo + 1
+        mid = (hi + lo) >> 1
+        pred = gather(mid) > target4
+        hi = torch.where(active & pred, mid, hi)
+        lo = torch.where(active & ~pred, mid, lo)
+    u0 = torch.exp2(l2u0 + lo.to(dtype) * LOG2_RATIO_U)
+    u_c = _lip(gather(lo), u0, gather(lo + 1), u0 * ratio, target4)
+
+    # forward: eps at u_c + u_seg; u index from log2 arithmetic
+    u_new = u_c + u_seg.to(dtype).view(*u_seg.shape, 1, 1)
+    k = (torch.log2(torch.clamp(u_new, min=1e-300)) - l2u0) / LOG2_RATIO_U
+    ki = torch.minimum(k.to(torch.int32).long().clamp_min(0),
+                       (nk - 2).clamp_min(0))
+    u_lo = torch.exp2(l2u0 + ki.to(dtype) * LOG2_RATIO_U)
+    eps_c = _c01(_lip(u_lo, gather(ki), u_lo * ratio, gather(ki + 1),
+                      u_new))                                # [R, G, 4, D]
+
+    t00 = _last(t_lo, it0).to(dtype)
+    t01 = _last(t_lo, it0 + 1).to(dtype)
+    t10 = _last(t_hi, it1).to(dtype)
+    t11 = _last(t_hi, it1 + 1).to(dtype)
+    eps_p0 = _c01(_lip(t00, eps_c[:, :, 0], t01, eps_c[:, :, 1], tb))
+    eps_p1 = _c01(_lip(t10, eps_c[:, :, 2], t11, eps_c[:, :, 3], tb))
+    pr = tbl.p.unsqueeze(0).expand(p.shape[0], G, D, -1)
+    p0 = _last(pr, ipr).to(dtype)
+    p1 = _last(pr, ipr + 1).to(dtype)
+    eps_t = _c01(_lip(p0, eps_p0, p1, eps_p1, pb))
+    no_table = ((tbl.np_ < 2) | (nt_lo < 2) | (nt_hi < 2)
+                | ~ok.all(dim=2))
+    return _factor(tau_path, eps_t, no_table)

@@ -456,37 +456,67 @@ def build_turbo_tables(ft: FastTables, device="cpu"):
     return tt.to(device), stats
 
 
+_CACHE_KEYS = ("coef", "sr", "chan_mask", "p_ax", "t_ax", "np_u", "nt_u")
+
+
+def save_turbo_tables(cf, tt: TurboTables, stats: TurboStats) -> None:
+    """Write fitted tables to the ``.npz`` file ``cf`` (through a
+    temporary name, so a reader never sees half a file).  The file holds
+    the logical rows, whatever layout the kernels read."""
+    cf = Path(cf)
+    cf.parent.mkdir(parents=True, exist_ok=True)
+    tmp = cf.with_suffix(".tmp.npz")
+    host = tt.to("cpu")
+    np.savez(tmp, coef=host.rows().numpy(),
+             **{k: getattr(host, k).numpy() for k in _CACHE_KEYS[1:]},
+             meta=np.asarray([tt.deg_f, tt.deg_i, tt.n_bad]),
+             stats=np.asarray(list(stats), np.float64))
+    tmp.replace(cf)
+
+
+def load_turbo_tables(cf, device="cpu"):
+    """(TurboTables on ``device``, TurboStats) from a file of
+    :func:`save_turbo_tables`."""
+    with np.load(cf, allow_pickle=False) as f:
+        tt = TurboTables(pack_rows(f["coef"]),
+                         *(f[k] for k in _CACHE_KEYS[1:]),
+                         *(int(x) for x in f["meta"]))
+        stats = TurboStats(int(f["stats"][0]), *map(float, f["stats"][1:]))
+    return tt.to(device), stats
+
+
 def build_turbo_tables_cached(ft: FastTables, cache_dir, device="cpu"):
     """:func:`build_turbo_tables` behind an ``.npz`` cache in
     ``cache_dir``, keyed by a hash of the FastTables content (the fit of
-    a benchmark-size table takes about a minute of host time).  The file
-    holds the logical rows, whatever layout the kernels read."""
+    a benchmark-size table takes about a minute of host time)."""
     h = hashlib.sha256()
     for f in ft._fields:
         a = np.ascontiguousarray(getattr(ft, f))
         h.update(f"{f}{a.dtype}{a.shape}".encode())
         h.update(a.data)
     cf = Path(cache_dir) / f"turbo_{h.hexdigest()[:20]}.npz"
-    keys = ("coef", "sr", "chan_mask", "p_ax", "t_ax", "np_u", "nt_u")
     if cf.exists():
-        with np.load(cf, allow_pickle=False) as f:
-            tt = TurboTables(pack_rows(f["coef"]),
-                             *(f[k] for k in keys[1:]),
-                             *(int(x) for x in f["meta"]))
-            stats = TurboStats(int(f["stats"][0]),
-                               *map(float, f["stats"][1:]))
-        return tt.to(device), stats
+        return load_turbo_tables(cf, device)
     tt, stats = build_turbo_tables(ft, "cpu")
     if tt is None:
         return None, None
-    cf.parent.mkdir(parents=True, exist_ok=True)
-    tmp = cf.with_suffix(".tmp.npz")
-    np.savez(tmp, coef=tt.rows().numpy(),
-             **{k: getattr(tt, k).numpy() for k in keys[1:]},
-             meta=np.asarray([tt.deg_f, tt.deg_i, tt.n_bad]),
-             stats=np.asarray(list(stats), np.float64))
-    tmp.replace(cf)
+    save_turbo_tables(cf, tt, stats)
     return tt.to(device), stats
+
+
+def slice_turbo_tables(tt: TurboTables, stats: TurboStats, nd: int):
+    """(tables, stats) of the first ``nd`` channels of fitted tables.
+    Every row is fitted on its own, so the slice holds the rows a fit of
+    the sliced FastTables gives (``tests/test_torch_cli_all.py`` holds
+    them byte-equal); ``rows`` and ``n_bad`` are counted in the slice,
+    the three error maxima stay those of all channels (bounds of the
+    slice's, so the acceptance gate decides as before or stricter)."""
+    coef = tt.coef[:, :, :, :nd].contiguous()
+    valid = unpack_rows(coef, tt.q_rows)[:, :, tt.deg_f + tt.deg_i + 2 + 11]
+    sl = tt._replace(coef=coef, sr=tt.sr[:, :nd].contiguous(),
+                     chan_mask=tt.chan_mask[:, :nd].contiguous(),
+                     n_bad=int((valid > 1.5).sum()))
+    return sl, stats._replace(rows=int((valid > 0.5).sum()))
 
 
 def turbo_tables_from_jax(eps_aug, sr, chan_mask, p_ax, t_ax, np_u, nt_u,

@@ -2,7 +2,9 @@
 ``python -m jurassic_torch.cli.formod`` in turbo and table mode
 (``KERNEL pallas``: 2e-3 of max|rad| and 2e-3 on tau against the C
 oracle, the table bar of tests/test_pallas_kernel.py:28-38), the modes
-the port does not have yet (each must raise, naming the ROADMAP), and the
+that later slices brought in (the eager oracles, ``auto`` on ragged
+tables, the pencil path, ray packages: each against the JAX package on
+the same inputs), a configuration both packages refuse, and the
 host-side FOV convolution copied from the JAX package."""
 import dataclasses
 import shutil
@@ -17,10 +19,12 @@ import jurassic_tpu.io_tab as jio
 from jurassic_tpu import forward as jf
 from jurassic_torch import forward as tf
 from jurassic_torch.cli import formod as cli
+from jurassic_torch.models.synthetic import fast_to_ega_tables
 from jurassic_torch.workloads import small_limb
 import jurassic_tpu.tables as jtab
 
 from test_torch_host_copies import golden_case
+from test_torch_host_copies import one_thread  # noqa: F401 (autouse)
 
 GOLD = Path(__file__).parent / "goldens"
 
@@ -69,14 +73,17 @@ def test_cli_formod_kernel_pallas_goldens(case, tmp_path, monkeypatch,
 
 
 def test_cli_reports_unported_modes(tmp_path, monkeypatch, capsys):
+    """A configuration the port cannot run -- here IP = 2 with ray
+    bending, which the JAX package refuses too -- exits 1 with the
+    reason and writes no output."""
     work = tmp_path / "ega"
     shutil.copytree(GOLD / "ega", work)
     monkeypatch.chdir(work)
     with pytest.raises(SystemExit) as e:
         cli.main(["formod", "ega.ctl", "obs.tab", "atm.tab", "rad.out",
-                  "KERNEL", "jax"])
+                  "IP", "2", "REFRAC", "1"])
     assert e.value.code == 1
-    assert "ROADMAP" in capsys.readouterr().out
+    assert "REFRAC = 0" in capsys.readouterr().out
     assert not (work / "rad.out").exists()
 
 
@@ -88,17 +95,42 @@ def _small(kernel="turbo", **over):
     return ctl, ft, atm, obs
 
 
+def _jax_formod(ctl, ft, atm, obs, tables=None):
+    """The JAX package's formod on copies of the port's inputs."""
+    j_ctl = jcfg.Ctl(**dataclasses.asdict(ctl))
+    j_obs = jio.Obs(**dataclasses.asdict(obs))
+    j_atm = jio.Atm(**dataclasses.asdict(atm))
+    kw = ({"fast_tables": jtab.FastTables(**ft._asdict())} if tables is None
+          else {"tables": jtab.EgaTables(**tables._asdict())})
+    jf.ForwardModel(j_ctl, **kw).formod(j_atm, j_obs)
+    return j_obs
+
+
 @pytest.mark.parametrize("kernel", ["auto-ragged", "jax", "exact", "fast"])
-def test_unported_kernels_raise(kernel):
+def test_unported_kernels_raise(kernel, capsys):
     """The eager oracles, and KERNEL = auto on tables whose axes are
-    ragged across channels (JAX sends those to its jnp pipeline)."""
-    ctl, ft, _atm, _obs = _small(kernel.split("-")[0])
+    ragged across channels (JAX sends those to its jnp pipeline, the port
+    to its eager fast pipeline, saying so): no raise, and the radiances
+    of the JAX package's formod within 1e-10 of max|rad| (both float64
+    eager pipelines)."""
+    ctl, ft, atm, obs = _small(kernel.split("-")[0])
+    tables = None
     if kernel == "auto-ragged":
         p = np.array(ft.p)
         p[0, :, 1] *= 1.5
         ft = ft._replace(p=p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.ForwardModel(ctl, fast_tables=ft)
+    if kernel == "exact":
+        tables = fast_to_ega_tables(ft)
+    o_j = _jax_formod(ctl, ft, atm.copy(), obs.copy(), tables)
+    fm = tf.ForwardModel(ctl, tables, fast_tables=ft)
+    o = fm.formod(atm.copy(), obs.copy())
+    assert fm.last_variant == ("exact" if kernel == "exact" else "fast")
+    assert ("not channel-uniform" in capsys.readouterr().out) \
+        == (kernel == "auto-ragged")
+    scale = np.abs(o_j.rad).max()
+    assert scale > 0
+    assert np.abs(o.rad - o_j.rad).max() <= 1e-10 * scale
+    assert np.abs(o.tau - o_j.tau).max() <= 1e-10
 
 
 def _roughen(ft, cells):
@@ -152,9 +184,19 @@ def test_rejected_fit(kernel, exc):
 
 @pytest.mark.parametrize("over", [{"ip": 2}, {"raypack": 2}])
 def test_unported_formod_options_raise(over):
-    ctl, ft, atm, obs = _small(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.ForwardModel(ctl, fast_tables=ft).formod(atm, obs)
+    """The pencil path (IP = 2, straight rays) and ray packages
+    (RAYPACK 2 on 3 rays) run, within 5e-5 of the JAX package's turbo
+    formod (both float32 fused passes)."""
+    ctl, ft, atm, obs = _small(refrac=0, **over)
+    o_j = _jax_formod(ctl, ft, atm.copy(), obs.copy())
+    fm = tf.ForwardModel(ctl, fast_tables=ft)
+    o = fm.formod(atm.copy(), obs.copy())
+    assert fm.last_variant == "turbo"
+    assert fm.package_size(obs.nr) == (2 if "raypack" in over else 0)
+    scale = np.abs(o_j.rad).max()
+    assert scale > 0
+    assert np.abs(o.rad - o_j.rad).max() <= 5e-5 * scale
+    assert np.abs(o.tau - o_j.tau).max() <= 5e-5
 
 
 def test_early_exit_and_monolithic_raypack_run():

@@ -33,6 +33,7 @@ from test_forward_golden import run_case
 from test_torch_cli import _roughen
 from test_torch_host_copies import (golden_case, port_fast_tables,
                                     small_limb_pair)
+from test_torch_host_copies import one_thread  # noqa: F401 (autouse)
 
 GOLD = Path(__file__).parent / "goldens"
 
@@ -175,11 +176,13 @@ def test_auto_falls_back_on_unfittable_tables(monkeypatch):
 
 
 def test_pallas_rejects_ragged_tables():
-    """Port twin of the ValueError half of tests/test_pallas_kernel.py::
-    test_pallas_rejects_ragged_tables; auto on such tables needs the jnp
-    pipeline, which is not ported."""
-    _, (ctl_t, ft_t, _a, _o) = small_limb_pair(ng=2, nd=4, nr=2, n_p=6,
-                                               n_t=4, n_k=32)
+    """Port twin of tests/test_pallas_kernel.py::
+    test_pallas_rejects_ragged_tables: turbo and pallas refuse tables
+    whose axes are ragged across channels; auto runs them through the
+    eager fast pipeline, as JAX runs them through its jnp pipeline, and
+    matches JAX's result within 1e-10 of max|rad| (both float64)."""
+    (ctl, ft, atm, obs), (ctl_t, ft_t, atm_t, obs_t) = small_limb_pair(
+        ng=2, nd=4, nr=2, n_p=6, n_t=4, n_k=32)
     p = np.array(ft_t.p)
     p[0, :, 1] *= 1.5
     ft_t = ft_t._replace(p=p)
@@ -187,9 +190,16 @@ def test_pallas_rejects_ragged_tables():
         ctl_t.kernel = kernel
         with pytest.raises(ValueError, match="channel-uniform"):
             ForwardModel(ctl_t, fast_tables=ft_t, device="cpu")
-    ctl_t.kernel = "auto"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ForwardModel(ctl_t, fast_tables=ft_t, device="cpu")
+    ctl.kernel = ctl_t.kernel = "auto"
+    JaxForwardModel(ctl, fast_tables=ft._replace(p=p)).formod(atm, obs)
+    fm = ForwardModel(ctl_t, fast_tables=ft_t, device="cpu")
+    assert fm.kernel_mode == "fast"
+    fm.formod(atm_t, obs_t)
+    assert fm.last_variant == "fast"
+    scale = np.abs(obs.rad).max()
+    assert scale > 0
+    assert np.abs(obs_t.rad - obs.rad).max() <= 1e-10 * scale
+    assert np.abs(obs_t.tau - obs.tau).max() <= 1e-10
 
 
 def test_hybrid_max_knob(monkeypatch):

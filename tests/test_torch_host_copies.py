@@ -10,6 +10,7 @@ class.  Everything here is NumPy on both sides, so every comparison is
 exact (equal arrays, equal fields, equal bytes of written files).
 """
 import dataclasses
+import importlib
 import inspect
 import sys
 from pathlib import Path
@@ -17,8 +18,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import jurassic_tpu._compat_random as jrand
+import jurassic_tpu.climatology as jclim
 import jurassic_tpu.config as jcfg
 import jurassic_tpu.constants as jconst
+import jurassic_tpu.interp_atm as jinterp
 import jurassic_tpu.io_tab as jio
 import jurassic_tpu.models.geometry_gen as jgeo
 import jurassic_tpu.models.synthetic as jsyn
@@ -27,8 +31,11 @@ import jurassic_tpu.ops.planck as jplanck
 import jurassic_tpu.retrieval as jret
 import jurassic_tpu.tables as jtab
 import jurassic_tpu.utils  # noqa: F401  (loads utils.timer)
+import jurassic_torch._compat_random as trand
+import jurassic_torch.climatology as tclim
 import jurassic_torch.config as tcfg
 import jurassic_torch.constants as tconst
+import jurassic_torch.interp_atm as tinterp
 import jurassic_torch.io_tab as tio
 import jurassic_torch.models.geometry_gen as tgeo
 import jurassic_torch.models.synthetic as tsyn
@@ -48,6 +55,20 @@ GOLD = REPO / "tests" / "goldens"
 
 # ---------------------------------------------------------------------------
 # Converters used by the other tests/test_torch_*.py files
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread for torch while a test runs.  The tests' tensors
+    are small, and the suite runs in parallel worker processes: there
+    torch's default of one spinning OpenMP thread per core oversubscribes
+    the CPU and slows a test several times over.  Modules that import
+    this fixture get it too."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 def fields(obj) -> dict:
     """Field dict of a dataclass or NamedTuple instance."""
@@ -121,7 +142,14 @@ PAIRS = {"constants": (jconst, tconst), "config": (jcfg, tcfg),
          "io_tab": (jio, tio), "tables": (jtab, ttab),
          "ops.planck": (jplanck, tplanck), "native": (jnative, tnative),
          "models.synthetic": (jsyn, tsyn),
-         "models.geometry_gen": (jgeo, tgeo), "utils.timer": (jtimer, ttimer)}
+         "models.geometry_gen": (jgeo, tgeo), "utils.timer": (jtimer, ttimer),
+         "interp_atm": (jinterp, tinterp), "climatology": (jclim, tclim),
+         "_compat_random": (jrand, trand)}
+CLIS = ("_common", "brightness", "climatology", "formod", "limb",
+        "memoryinfo", "nadir", "obs2spec", "planck", "strhash", "timeconv")
+for _n in CLIS:
+    PAIRS[f"cli.{_n}"] = (importlib.import_module(f"jurassic_tpu.cli.{_n}"),
+                          importlib.import_module(f"jurassic_torch.cli.{_n}"))
 
 
 def _public(mod):
@@ -138,6 +166,8 @@ def test_copy_has_every_public_name(name):
     for n in sorted(_public(jmod)):
         assert hasattr(tmod, n), f"{name}.{n} missing in the port"
         jv, tv = getattr(jmod, n), getattr(tmod, n)
+        if callable(jv) and not inspect.isclass(jv):      # lru_cache
+            jv, tv = inspect.unwrap(jv), inspect.unwrap(tv)
         if inspect.isfunction(jv):
             assert str(inspect.signature(jv)) == str(inspect.signature(tv)), n
         elif inspect.isclass(jv):
@@ -172,6 +202,47 @@ def test_continua_data_is_a_byte_copy():
     a = REPO / "jurassic_tpu" / "data" / "continua.npz"
     b = REPO / "jurassic_torch" / "data" / "continua.npz"
     assert a.read_bytes() == b.read_bytes()
+
+
+def test_climatology_data_is_a_byte_copy():
+    a = REPO / "jurassic_tpu" / "data" / "climatology.npz"
+    b = REPO / "jurassic_torch" / "data" / "climatology.npz"
+    assert a.read_bytes() == b.read_bytes()
+
+
+def test_climatology_matches():
+    """climatology() fills the same atmosphere, warning lines included
+    (an emitter without a climatology table)."""
+    ctl_j, _o, atm_j = golden_case("limb", jcfg, jio)
+    ctl_t, _o, atm_t = golden_case("limb")
+    for c in (ctl_j, ctl_t):
+        c.emitter[1] = "XYZ"
+    assert_same_fields(tclim.climatology(ctl_t, atm_t),
+                       jclim.climatology(ctl_j, atm_j))
+    assert (atm_t.t > 0).all()
+    g_j, g_t = jrand.ref_uniform_sequence(3), trand.ref_uniform_sequence(3)
+    assert [next(g_t) for _ in range(5)] == [next(g_j) for _ in range(5)]
+
+
+@pytest.mark.parametrize("ip", [1, 2, 3])
+def test_interp_atm_matches(ip):
+    """intpol_atm_geo on a three-profile track: the same arrays."""
+    from test_interp_atm import _track_atm
+    ctl_j = jsyn.synthetic_ctl(ng=2, nd=3)
+    ctl_j.ip, ctl_j.cz, ctl_j.cx = ip, 2.0, 300.0
+    atm_j = _track_atm(ctl_j)
+    ctl_t, atm_t = port_ctl(ctl_j), port_atm(atm_j)
+    rng = np.random.default_rng(ip)
+    z = rng.uniform(0, 80, 40)
+    lon = rng.uniform(-2, 2, 40)
+    lat = rng.uniform(-6, 6, 40)
+    tp_j = jinterp.split_profiles(atm_j) if ip == 2 else None
+    tp_t = tinterp.split_profiles(atm_t) if ip == 2 else None
+    got = tinterp.intpol_atm_geo(ctl_t, atm_t, z, lon, lat, tp_t)
+    ref = jinterp.intpol_atm_geo(ctl_j, atm_j, z, lon, lat, tp_j)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    assert np.isfinite(got[1]).any()
 
 
 @pytest.mark.parametrize("case", ["limb", "ega", "nadir", "gas30", "fov"])
