@@ -72,6 +72,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
     eighth ray) on a three-profile track with identical profiles and
     ``REFRAC 0``, against ``IP = 1`` (2e-3 / 0.1 of max|rad|, the JAX
     test's bars), through the turbo kernel;
+12. retrieval Jacobians -- the flagship with HYDZ 20 (the hydrostatic
+    rebuild in the graph): ``kernel_autodiff`` on the 130-element state
+    (T and the 4 gases' vmr at the 26 levels of 10-60 km) in float64 and
+    float32: wall time, packages, peak memory against the sizing
+    estimate, max|K|, and float32 held to float64 per quantity of its own
+    max|K| (``AD_F32_TOL``); the host cost of one operation under
+    ``jacfwd`` (``jvp_dispatch``); device launches and busy time
+    (CUDA-activity profiler) of the float32 pass and of the float64
+    package of the packages check below; the FD
+    ``retrieval.kernel`` on a 5-element state (T at 10-18 km) through
+    ``KERNEL = auto`` (n+1 turbo launches) and ``KERNEL = pallas`` (n+1
+    table launches), each held to those columns of the float64 autodiff
+    at the JAX package's bars (2e-2 of max|K| plus 0.05 relative); the
+    float64 autodiff on the card against the CPU on a small case (1e-10
+    of max|K|); the packages bit for bit: one package of every fourth ray
+    (271) against those rays' rows of the packaged 1084-ray run.
 
 Every model here is built with USEGPU = 1 on the CUDA device and every
 CLI run passes ``USEGPU 1``: nothing can fall back to the CPU or to a
@@ -124,6 +140,17 @@ EAGER_GOLDENS = {"limb": (5e-6, 2e-6, 2e-4), "nadir": (5e-6, 2e-6, 2e-4),
 FLAGSHIP_BANDS = (slice(0, 40), slice(40, 70), slice(70, 100))
 EAGER_VS_TABLE_TOL = 1e-5   # tests/test_pallas_kernel.py:41-68
 PENCIL_TOL = {2: 2e-3, 3: 0.1}   # tests/test_interp_atm.py:101-105
+# FD vs autodiff Jacobian (tests/test_retrieval.py:75,106): of max|K|, and
+# relative
+FD_ATOL, FD_RTOL = 2e-2, 0.05
+# float32 autodiff vs float64, each quantity's columns of its own max|K|:
+# the float32 eager EGA resolves a thin segment's transmittance change to
+# a few of its bits, so its derivatives are good to percents (at the
+# flagship on the H100: T 2.2e-2, CO2 0.165, H2O 2.2e-2, O3 6.4e-2, F11
+# 5.0e-2); CO2, the most opaque gas, the least well
+AD_F32_TOL = {"TEMPERATURE": 0.1, "CO2": 0.3, "H2O": 0.1, "O3": 0.1,
+              "F11": 0.1}
+AD_CARD_CPU_TOL = 1e-10  # float64 card vs CPU, of max|K| (as the formod)
 # flagship cells (pressure index, temperature index) of gas 0, channel 2
 # that the limb scan reads on ~10,000 segments each; roughening them gives
 # the hybrid tainted lanes to re-evaluate
@@ -180,8 +207,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -420,31 +450,31 @@ def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
 
 def profile_formod(torch, fm, atm, obs, wall_ms: float) -> None:
     """Device time and kernel launches of one flagship formod
-    (torch.profiler, CUDA activity): where the time goes.  The busy share
-    is taken of ``wall_ms``, the median formod time without the
-    profiler, which slows the host side many times over."""
-    from torch.autograd import DeviceType
+    (torch.profiler, CUDA activity only): where the time goes.  The busy
+    share is taken of ``wall_ms``, the median formod time without the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fm.formod(atm.copy(), obs.copy())
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = device_events(prof)
+    busy_ms = sum(ns for _, ns in kernels) / 1e6
     if not kernels or busy_ms <= 0:
         fail("the profiler recorded no device time")
     print(f"flagship formod profiled: {wall * 1e3:.1f} ms wall (with "
           f"profiler), device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}"
           f" of the {wall_ms:.1f} ms median formod), "
-          f"{sum(e.count for e in kernels)} device kernel launches",
-          flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  {e.self_device_time_total / 1e3:8.2f} ms "
-              f"{e.count:6d} x  {e.key[:90]}")
+          f"{len(kernels)} device kernel launches", flush=True)
+    by_name: dict = {}
+    for name, ns in kernels:
+        count, total = by_name.get(name, (0, 0))
+        by_name[name] = (count + 1, total + ns)
+    for name, (count, total) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][1])[:6]:
+        print(f"  {total / 1e6:8.2f} ms {count:6d} x  {name[:90]}")
 
 
 def probe_phase(torch, peak, dev):
@@ -628,21 +658,33 @@ def eager_golden(torch, ega_fused, ForwardModel, dev, case: str,
              "JAX package's bar")
 
 
-def device_profile(torch, fn):
-    """(device kernel launches, device busy ms) of ``fn()`` under
-    torch.profiler with CUDA activity only (recording the host's operators
-    too slows a launch-bound pass ten times over)."""
+def device_events(prof) -> list:
+    """(name, nanoseconds) of every device activity a finished
+    torch.profiler run recorded, read from its raw Kineto events:
+    ``key_averages()`` builds a Python object per event first, which
+    takes minutes for the million launches of an autodiff pass."""
     from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def profiled_call(torch, fn):
+    """(result, wall seconds, device kernel launches, device busy ms) of
+    ``fn()`` under torch.profiler with CUDA activity only (recording the
+    host's operators too slows a launch-bound pass ten times over)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
-    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in ks) / 1e3
+    wall = time.perf_counter() - t0
+    ks = device_events(prof)
+    busy = sum(ns for _, ns in ks) / 1e6
     if not ks or busy <= 0:
         fail("the profiler recorded no device time")
-    return sum(e.count for e in ks), busy
+    return out, wall, len(ks), busy
 
 
 def device_pass(torch, fn):
@@ -654,7 +696,7 @@ def device_pass(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return (out, ms, *device_profile(torch, fn))
+    return (out, ms, *profiled_call(torch, fn)[2:])
 
 
 def eager_vs_table(torch, ForwardModel, flagship, fm_p, dev):
@@ -752,8 +794,8 @@ def packaged_runs(torch, ega_fused, fm, atm, obs, label: str, variant: str,
 def idle_share(torch, fm, atm, obs, wall_ms: float, label: str) -> None:
     """The device's busy and idle share of one formod, taken of the
     median formod time without the profiler."""
-    n, busy = device_profile(torch, lambda: fm.formod(atm.copy(),
-                                                      obs.copy()))
+    n, busy = profiled_call(torch, lambda: fm.formod(atm.copy(),
+                                                     obs.copy()))[2:]
     print(f"{label}: device busy {busy:.1f} ms of the {wall_ms:.1f} ms "
           f"median, idle share {1 - busy / wall_ms:.1%}; {n} device kernel "
           "launches", flush=True)
@@ -809,6 +851,228 @@ def pencil_phase(torch, ega_fused, ForwardModel, flagship, tt, stats, dev):
         if not (launches == (1, 0) and fm.last_variant == "turbo"
                 and np.isfinite(o.rad).all() and err <= PENCIL_TOL[ip]):
             fail(f"pencil IP = {ip} failed")
+
+
+def retrieval_ctl(flagship, kernel: str, state: str):
+    """(ctl, fast tables, atm, obs) of the flagship retrieval: HYDZ 20 and
+    the state ``small`` (T at 10-18 km, 5 elements) or ``full`` (T and
+    the 4 gases' vmr at the 26 levels of 10-60 km, 130 elements)."""
+    ctl, ft, atm, obs = flagship()
+    ctl.usetpu, ctl.kernel, ctl.hydz = 1, kernel, 20.0
+    ctl.rett_zmin, ctl.rett_zmax = 10.0, 18.0 if state == "small" else 60.0
+    if state == "full":
+        ctl.retq_zmin, ctl.retq_zmax = [10.0] * ctl.ng, [60.0] * ctl.ng
+    return ctl, ft, atm, obs
+
+
+def fd_vs_ad(K_fd, K_ad, label: str) -> float:
+    """The FD Jacobian against the autodiff one at the JAX package's bars;
+    returns the excess over the relative bar, of max|K_ad|."""
+    import numpy as np
+    scale = np.abs(K_ad).max()
+    d = np.abs(K_fd - K_ad)
+    excess = float((d - FD_RTOL * np.abs(K_ad)).max() / scale)
+    print(f"{label}: K {K_fd.shape}, max|K_fd - K_ad| {d.max() / scale:.3e} "
+          f"of max|K_ad| {scale:.4e}; beyond {FD_RTOL} relative "
+          f"{excess:.3e} (bar {FD_ATOL})", flush=True)
+    if not (K_fd.shape == K_ad.shape and np.isfinite(K_fd).all()
+            and scale > 0 and excess <= FD_ATOL):
+        fail(f"{label}: the FD and autodiff Jacobians disagree")
+    return excess
+
+
+def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
+                 raypack: int = 0, rows=None, profiled: bool = True):
+    """``kernel_autodiff`` on the full flagship retrieval state (the rays
+    ``rows`` of the scan, default all), under the CUDA-activity profiler
+    where ``profiled``: returns (K, rays, packages) after printing wall
+    time, launches, busy time, packages and the peak memory against the
+    sizing estimate."""
+    import numpy as np
+    from jurassic_torch.forward import _obs_rows
+    from jurassic_torch.retrieval import (atm2x, autodiff_package_size,
+                                          autodiff_ray_bytes,
+                                          kernel_autodiff)
+    ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
+    ctl.raypack = raypack
+    if rows is not None:
+        obs = _obs_rows(obs, rows)
+    m = ForwardModel(ctl, fast_tables=ft, device=dev, dtype=dtype)
+    n = atm2x(ctl, atm)[0].size
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pack = autodiff_package_size(m, obs.nr, n) or obs.nr
+    npk = -(-obs.nr // pack)
+    est = autodiff_ray_bytes(m, n) * pack
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    run = lambda: kernel_autodiff(ctl, atm.copy(), obs.copy(), m)
+    if profiled:
+        K, wall, launches, busy = profiled_call(torch, run)
+        on = (f"wall (CUDA-activity profiler on), {launches} device kernel "
+              f"launches, device busy {busy:.1f} ms")
+    else:
+        t0 = time.perf_counter()
+        K = run()
+        torch.cuda.synchronize()
+        wall, on = time.perf_counter() - t0, "wall"
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    scale = float(np.abs(K).max())
+    print(f"{label}: {obs.nr} rays x {ctl.nd} channels, n = {n}, "
+          f"{str(dtype)[6:]}: {wall:.1f} s {on}; {npk} package(s) of "
+          f"{pack} rays; peak "
+          f"{peak / 1e9:.2f} GB against the estimate {est / 1e9:.2f} GB "
+          f"({est / max(peak, 1):.2f} x); max|K| {scale:.4e}", flush=True)
+    if not (K.shape == (obs.nr * ctl.nd, n) and np.isfinite(K).all()
+            and scale > 0):
+        fail(f"{label}: the Jacobian is malformed")
+    return K, obs.nr, npk
+
+
+def jvp_dispatch(torch, dev, n: int = 130, chain: int = 200) -> None:
+    """Host microseconds per operation under ``torch.func.jacfwd``, what
+    makes ``kernel_autodiff`` host-bound: a chain of ``chain`` operations
+    on one value per flagship ray, untransformed and under ``jacfwd``
+    over an n-element input, with both operands carrying a tangent or
+    one a Python constant.  A constant gets a ZeroTensor tangent whose
+    shape PyTorch computes through the operation's meta kernel, Python
+    code in recent releases (``torch/_meta_registrations.py``)."""
+    x = torch.rand(n, dtype=torch.float64, device=dev) + 0.5
+    spread = torch.rand(1084, dtype=torch.float64, device=dev)
+
+    def chained(op):
+        def f(v):
+            y = v.mean() + spread
+            one = v.mean() / v.mean().detach()    # 1, with a tangent
+            for _ in range(chain):
+                y = op(y, one)
+            return y
+        return f
+
+    cases = {
+        "plain mul by a constant": (lambda y, one: y * 1.0000001, False),
+        "jacfwd sqrt": (lambda y, one: torch.sqrt(y), True),
+        "jacfwd mul, both with tangents": (lambda y, one: y * one, True),
+        "jacfwd mul by a constant": (lambda y, one: y * 1.0000001, True),
+        "jacfwd add of a constant": (lambda y, one: y + 1e-9, True),
+    }
+    us = {}
+    for name, (op, transformed) in cases.items():
+        f = torch.func.jacfwd(chained(op)) if transformed else chained(op)
+        f(x)                                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f(x)
+        torch.cuda.synchronize()
+        us[name] = (time.perf_counter() - t0) / chain * 1e6
+    print(f"host cost per operation (n = {n}, chains of {chain} on 1084 "
+          "values): " + ", ".join(f"{k} {v:.1f} us" for k, v in us.items()),
+          flush=True)
+
+
+def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
+                    tt, stats, dev):
+    """Phase 12: the 130-element autodiff in float64 and float32, the FD
+    Jacobian on the small state through both fused kernels against the
+    float64 autodiff's columns of that state, float64 card against CPU,
+    packages.  The profiler costs a pass as much again, so it records the
+    float32 pass (one package) and the float64 package of the
+    packages check, not the two-package float64 pass: a package launches
+    the same kernels whatever its ray count.  Returns the (turbo, table)
+    launches of the FD Jacobians."""
+    import numpy as np
+    from jurassic_torch.retrieval import (IDXT, atm2x, idx2name, kernel,
+                                          kernel_autodiff)
+    K64, nr, npk = autodiff_run(torch, ForwardModel, flagship, dev,
+                                torch.float64, "flagship retrieval autodiff",
+                                profiled=False)
+    K32, _, _ = autodiff_run(torch, ForwardModel, flagship, dev,
+                             torch.float32, "flagship retrieval autodiff")
+    scale = np.abs(K64).max()
+    d32 = np.abs(K32 - K64)
+    print(f"float32 vs float64 autodiff: {d32.max() / scale:.3e} of max|K|;"
+          f" beyond 0.05 relative "
+          f"{float((d32 - 0.05 * np.abs(K64)).max() / scale):.3e}",
+          flush=True)
+    ctl, _, atm, _ = retrieval_ctl(flagship, "jax", "full")
+    _, iqa, ipa = atm2x(ctl, atm)
+    errs = {}
+    for q in np.unique(iqa):
+        name, cols = idx2name(ctl, q), iqa == q
+        q_scale = np.abs(K64[:, cols]).max()
+        errs[name] = (float(d32[:, cols].max() / q_scale) if q_scale > 0
+                      else np.inf)
+    print("  by quantity, of its own max|K| (bar): " + ", ".join(
+        f"{name} {e:.3e} ({AD_F32_TOL.get(name)})"
+        for name, e in errs.items()), flush=True)
+    if sorted(errs) != sorted(AD_F32_TOL) or any(
+            not e <= AD_F32_TOL[name] for name, e in errs.items()):
+        fail("the float32 autodiff Jacobian misses its bar")
+    del K32, d32
+    jvp_dispatch(torch, dev)
+
+    # FD on the small state, held to those columns of the float64
+    # autodiff (the columns of a forward-mode Jacobian do not depend on
+    # the rest of the state)
+    K_ad = K64[:, (iqa == IDXT) & (atm.z[ipa] <= 18.0)]
+    fd_launches = {}
+    for kernel_mode, per in (("auto", (1, 0)), ("pallas", (0, 1))):
+        ctl_k, ft, atm, obs = retrieval_ctl(flagship, kernel_mode, "small")
+        n = atm2x(ctl_k, atm)[0].size
+        extra = ({"turbo_tables": tt, "turbo_stats": stats}
+                 if kernel_mode == "auto" else {})
+        m = ForwardModel(ctl_k, fast_tables=ft, device=dev, **extra)
+        ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+        t0 = time.perf_counter()
+        K_fd = kernel(ctl_k, atm.copy(), obs.copy(), m)
+        dt = time.perf_counter() - t0
+        launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+        fd_launches[kernel_mode] = launches
+        print(f"FD kernel, KERNEL = {kernel_mode}: n = {n}, {n + 1} "
+              f"formods in {dt:.1f} s; launches turbo {launches[0]} table "
+              f"{launches[1]}; variant {m.last_variant}", flush=True)
+        if launches != (per[0] * (n + 1), per[1] * (n + 1)):
+            fail(f"FD kernel ({kernel_mode}): launches {launches}, expected "
+                 f"{per} per formod")
+        fd_vs_ad(K_fd, K_ad, f"FD ({kernel_mode}, float32 kernel) vs "
+                 "float64 autodiff")
+        del m
+
+    # card against CPU, float64, a small case
+    ctl, ft, atm, obs = small_limb(ng=3, nd=8, nr=9)
+    ctl.kernel, ctl.hydz = "jax", 20.0
+    ctl.rett_zmin, ctl.rett_zmax = 10.0, 26.0
+    ctl.retq_zmin = [-999.0, 20.0, -999.0]
+    ctl.retq_zmax = [-999.0, 20.0, -999.0]
+    Ks = []
+    for d in ("cpu", dev):
+        ctl.usetpu = 0 if d == "cpu" else 1
+        m = ForwardModel(ctl, fast_tables=ft, device=d, dtype=torch.float64)
+        t0 = time.perf_counter()
+        Ks.append(kernel_autodiff(ctl, atm.copy(), obs.copy(), m))
+        print(f"small autodiff (n = {Ks[-1].shape[1]}, 9 rays, NLOS "
+              f"{ctl.nlos}) on {d}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    e_dev = float(np.abs(Ks[1] - Ks[0]).max() / np.abs(Ks[0]).max())
+    print(f"float64 autodiff card vs CPU: {e_dev:.3e} of max|K| (bar "
+          f"{AD_CARD_CPU_TOL})", flush=True)
+    if not e_dev <= AD_CARD_CPU_TOL:
+        fail("the float64 autodiff differs between card and CPU")
+
+    # packages: every fourth ray as one package (or, where the 1084-ray
+    # run was one package, in packages of 91) against those rays' rows
+    rows = slice(None, None, 4)
+    K_cut, nr_cut, npk_cut = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float64,
+        "flagship autodiff, every fourth ray",
+        raypack=-1 if npk > 1 else 91, rows=rows)
+    ref = K64.reshape(nr, -1, K64.shape[1])[rows].reshape(K_cut.shape)
+    same = np.array_equal(K_cut, ref)
+    print(f"packages: {npk} package(s) for {nr} rays, {npk_cut} for the "
+          f"{nr_cut} rays: their rows bit for bit {same}", flush=True)
+    if not (same and (npk > 1 or npk_cut > 1)):
+        fail("packaged and one-package Jacobian rows differ")
+    return fd_launches["auto"][0], fd_launches["pallas"][1]
 
 
 def main() -> None:
@@ -1104,6 +1368,13 @@ def main() -> None:
     phase("pencil (IP = 2/3)")
     pencil_phase(torch, ega_fused, ForwardModel, flagship, tt, stats, dev)
 
+    phase("retrieval Jacobians")
+    del fm, fm_p, fm_h, fm_rp, los, common, args, args_t, args_h
+    torch.cuda.empty_cache()
+    fd_turbo, fd_table = retrieval_phase(torch, ega_fused, ForwardModel,
+                                         flagship, small_limb, tt, stats,
+                                         dev)
+
     import_hygiene()
 
     print(card, flush=True)
@@ -1116,7 +1387,10 @@ def main() -> None:
          "launches_on": f"flagship formod KERNEL = auto, one package, "
                         f"{N_FORMOD_RUNS + 1} calls",
          "max_abs_err": max(err, err9, err_s, err_h),
-         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by},
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "jacobian_launches": fd_turbo,
+         "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
+                                 "auto, n = 5 (6 formods)"},
         {"name": "ega_fused_table", **fused,
          "source": "jurassic_torch/csrc/ega_fused_table.cu",
          "replaces": "jurassic_tpu/ops/pallas/ega_fused.py:859",
@@ -1125,7 +1399,9 @@ def main() -> None:
                         f"{N_FORMOD_RUNS + 1} calls",
          "max_abs_err": max(err_t, err_t9, err_ts),
          "ms": kt_ms, "plain_ms": pt_ms, "bound_ms": bt_ms,
-         "bound_by": bt_by},
+         "bound_by": bt_by, "jacobian_launches": fd_table,
+         "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
+                                 "pallas, n = 5 (6 formods)"},
         *probe_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,8 +47,10 @@ from .geometry import (LosData, build_ray_profiles, hydrostatic_atm,
                        trace_rays)
 from .interp_atm import intpol_atm_geo, split_profiles
 from .io_tab import Atm, Obs, read_shape
-from .ops.continua import beta_ds, continua_to_device, precompute_continua
-from .ops.ega import (ega_eps_exact, ega_eps_fast, ega_tables_to_device,
+from .ops.continua import (ContinuaCoeffs, beta_ds, continua_to_device,
+                           precompute_continua)
+from .ops.ega import (EgaDeviceTables, FastDeviceTables, ega_eps_exact,
+                      ega_eps_fast, ega_tables_to_device,
                       fast_tables_to_device)
 from .ops.ega_fused import (N_SEG, pack_continua, rt_fused_table,
                             rt_fused_turbo)
@@ -235,6 +237,15 @@ def channel_slice(tbl, nd: int):
                            for f in tbl._fields if f != "st"})
 
 
+class EagerTables(NamedTuple):
+    """What :func:`rt_integrate` takes of a model besides its source
+    table and flags (:meth:`ForwardModel.eager_tables`)."""
+    tbl: EgaDeviceTables | FastDeviceTables
+    cc: ContinuaCoeffs
+    window: torch.Tensor    # [D] int64 channel -> window
+    use_fast: bool
+
+
 class _Package(NamedTuple):
     rows: slice
     pull: tuple             # rad, tau, tpz, tplon, tplat (, taint)
@@ -294,14 +305,9 @@ class ForwardModel:
             if ctl.kernel in FUSED_KERNELS:
                 self._init_fused(fast_tables, turbo_tables, turbo_stats,
                                  directory)
-            if self.kernel_mode == "fast":
-                self.dev_tbl = fast_tables_to_device(fast_tables,
-                                                     self.device)
         elif tables is None:
             raise ValueError(f"KERNEL = {ctl.kernel} runs on the exact "
                              "EgaTables; none were given")
-        else:
-            self.dev_tbl = ega_tables_to_device(tables, self.device)
         self.fast_tables = fast_tables
 
         src = tables if tables is not None else fast_tables
@@ -309,14 +315,13 @@ class ForwardModel:
         def f64(a):
             return torch.as_tensor(np.asarray(a, np.float64)).to(self.device)
         self.sr, self.st, self.nu = (f64(src.sr), f64(src.st), f64(ctl.nu))
-        cc = precompute_continua(ctl)
+        self._eager: EagerTables | None = None
         if self.kernel_mode == "fused":
-            self.cc_rows = pack_continua(cc, np.asarray(ctl.window), ctl.nd,
+            self.cc_rows = pack_continua(precompute_continua(ctl),
+                                         np.asarray(ctl.window), ctl.nd,
                                          ctl.nw, self.device)
         else:
-            self.cc = continua_to_device(cc, self.dtype, self.device)
-            self.window = torch.as_tensor(np.asarray(ctl.window, np.int64),
-                                          device=self.device)
+            self.eager_tables()
         # continuum configuration (fourbit, CPUdrivers.c:126-134)
         self.ig_co2 = ctl.emitter_index("CO2")
         self.ig_h2o = ctl.emitter_index("H2O")
@@ -443,12 +448,37 @@ class ForwardModel:
                             turbo_stats=st, device=self.device,
                             dtype=self.dtype)
 
+    def eager_tables(self) -> EagerTables:
+        """The eager pipeline's tables, continua and channel -> window map
+        on the model's device and in its dtype (the arguments of
+        :func:`rt_integrate`).  An eager model builds them with itself; a
+        fused model, which needs none to run, builds them on first use
+        from the fast tables its kernels' tables were made from (the JAX
+        model always holds them: ``kernel_autodiff`` differentiates the
+        eager pipeline whatever the kernel, retrieval.py:276-279).  Only
+        a ``KERNEL = exact`` model holds the exact tables
+        (``use_fast`` False)."""
+        if self._eager is None:
+            exact = self.kernel_mode == "exact"
+            tbl = (ega_tables_to_device(self.tables, self.device) if exact
+                   else fast_tables_to_device(self.fast_tables, self.device))
+            self._eager = EagerTables(
+                tbl=tbl,
+                cc=continua_to_device(precompute_continua(self.ctl),
+                                      self.dtype, self.device),
+                window=torch.as_tensor(np.asarray(self.ctl.window, np.int64),
+                                       device=self.device),
+                use_fast=not exact)
+        return self._eager
+
     # -- sizing of ray packages (forward.py:517-626) ------------------------
 
-    def _ray_bytes(self) -> tuple[int, int]:
+    def _ray_bytes(self, mode: str | None = None) -> tuple[int, int]:
         """(in flight, kept) device bytes per ray of one package: the
         peak while a package is traced and integrated, and what it keeps
-        until the one pull at the end of the package loop.  In flight:
+        until the one pull at the end of the package loop, for the
+        ``mode`` ("fused", "fast" or "exact"; default the model's
+        ``kernel_mode``).  In flight:
         the LOS (``LosData``), the tracer's per-step outputs and their
         stacked copy, and then either the segment stream [S, F] f32 and
         the kernels' outputs, or the eager pass's per-step temporaries
@@ -458,20 +488,22 @@ class ForwardModel:
         where a hybrid re-run may need it.  Tables are resident and not
         counted."""
         ctl = self.ctl
+        mode = self.kernel_mode if mode is None else mode
         S, G, W, D = ctl.nlos, ctl.ng, ctl.nw, ctl.nd
         b = torch.empty((), dtype=self.dtype).element_size()
         los = S * ((6 + 2 * G + W) * b + 1)
         trace = S * ((2 * (8 + G + W) + 2 * G + 3) * b + 2)
-        if self.kernel_mode == "fused":
+        if mode == "fused":
             step = 2 * S * (N_SEG + W + G) * 4 + 12 * D * 4
         else:
             # the bracketing rows [G, D, T] and masks [G, D, P or T], the
             # corner-batched values and indices [G, 4, D] of the fast
             # search, or the exact rows
-            P, T = self.dev_tbl.p.shape[-1], self.dev_tbl.t.shape[-1]
+            tbl = self.eager_tables().tbl
+            P, T = tbl.p.shape[-1], tbl.t.shape[-1]
             step = G * D * (2 * T * b + 3 * max(P, T) + 24 * 4 * 8 + 10 * b)
-            if self.kernel_mode == "exact":
-                step += G * D * self.dev_tbl.u.shape[-1] * (2 * (4 + b) + 3)
+            if mode == "exact":
+                step += G * D * tbl.u.shape[-1] * (2 * (4 + b) + 3)
         out = 2 * (3 * D + 3) * 8 + 4 * D * 8
         kept = 4 * D * 4 + (los if self._hybrid() else 0)
         return max(trace, los + step) + out, kept
@@ -495,6 +527,13 @@ class ForwardModel:
         npk = -(-nr // pack)
         return -(-nr // npk)
 
+    def free_device_bytes(self) -> int:
+        """The card's free memory now: ``torch.cuda.mem_get_info`` plus
+        what PyTorch's allocator holds unused."""
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free + (torch.cuda.memory_reserved(self.device)
+                       - torch.cuda.memory_allocated(self.device))
+
     def _resolve_raypack(self, nr: int) -> int:
         """RAYPACK > 0: the explicit size; < 0: one package; 0: sized so
         that two packages in flight, with what every package keeps, fit
@@ -507,9 +546,7 @@ class ForwardModel:
             return pack
         if pack < 0 or self.device.type != "cuda":
             return 0
-        free, _ = torch.cuda.mem_get_info(self.device)
-        free += (torch.cuda.memory_reserved(self.device)
-                 - torch.cuda.memory_allocated(self.device))
+        free = self.free_device_bytes()
         flight, kept = self._ray_bytes()
         fit = max((int(0.9 * free) - nr * kept) // (2 * flight), 1)
         fit = 0 if fit >= nr else fit
@@ -608,11 +645,7 @@ class ForwardModel:
         row (None when the tables have none)."""
         if self.kernel_mode != "fused":
             self.last_variant = self.kernel_mode
-            return rt_integrate(
-                self.dev_tbl, self.sr, self.st, self.nu, self.cc,
-                self.window, los, los.tsurf, self.flags, self.ig_co2,
-                self.ig_h2o, self.kernel_mode == "fast",
-                bool(self.ctl.write_bbt)), None
+            return self.integrate_eager(los), None
         args = (self.cc_rows, los, self.flags, self.ig_co2, self.ig_h2o)
         if self.turbo_tbl is None:
             rad, tau = rt_fused_table(self.table_tbl, *args)
@@ -621,6 +654,15 @@ class ForwardModel:
             rad, tau, taint = rt_fused_turbo(self.turbo_tbl, *args)
             self.last_variant = "turbo"
         return self._epilogue(rad, tau, los), taint
+
+    def integrate_eager(self, los: LosData) -> RtOut:
+        """The eager pipeline on ``los`` with :meth:`eager_tables`,
+        whatever the model's kernel: the pass ``kernel_autodiff``
+        differentiates."""
+        e = self.eager_tables()
+        return rt_integrate(e.tbl, self.sr, self.st, self.nu, e.cc, e.window,
+                            los, los.tsurf, self.flags, self.ig_co2,
+                            self.ig_h2o, e.use_fast, bool(self.ctl.write_bbt))
 
     def _epilogue(self, rad, tau, los) -> RtOut:
         return rt_epilogue(rad, tau, self.sr, self.st, self.nu, los.tsurf,

@@ -13,7 +13,8 @@ while loop would have stopped it.
 The tracer is dtype-parametric: float64 on the CPU (parity with the
 double-precision reference), float32 on CUDA.  The hydrostatic
 equilibrium at the end is host-side float64 NumPy, copied from the JAX
-package (which keeps it in NumPy too).
+package (which keeps it in NumPy too), with its differentiable tensor
+twin for ``retrieval.kernel_autodiff``.
 """
 from __future__ import annotations
 
@@ -282,7 +283,14 @@ def _entry_point(xobs, ex0, norm, zmax):
     """Observer above the atmosphere: bisect the entry point
     (jr_common.h:610-621).  The JAX form is a per-ray while loop; here a
     bounded loop updates only rays whose loop condition still holds, so
-    each ray stops in the state its while loop would have stopped in."""
+    each ray stops in the state its while loop would have stopped in.
+
+    The ``any()`` syncs see observer geometry only (``xobs``, ``ex0``,
+    ``norm`` and the profile tops ``zmax`` come from the observation and
+    the atmosphere's altitude grid), never a tensor that carries a
+    tangent: ``retrieval.kernel_autodiff`` runs the tracer under
+    ``torch.func.jacfwd``, where a Python branch on the state would fail.
+    """
     dmin = torch.zeros_like(norm)
     dmax = norm.clone()
     x = xobs.clone()
@@ -390,11 +398,13 @@ def trace_rays(ctl: Ctl, prof: RayProfiles, obs_geo: dict) -> LosData:
             nn = 1.0 + refractivity(p, t)
             xh2 = x + (0.5 * ds).unsqueeze(1) * ex
             h = 0.02
+            # the offset points are stacked, not written into a clone:
+            # xh2 carries tangents under torch.func once REFRAC = 1
             xps = [xh2]
             for i in range(3):
-                xp = xh2.clone()
-                xp[:, i] = xh2[:, i] + h
-                xps.append(xp)
+                xps.append(torch.stack([xh2[:, j] + h if j == i
+                                        else xh2[:, j] for j in range(3)],
+                                       dim=1))
             # the midpoint and its three offset points share one
             # interval search (columns 0 and 1..3 of one [R, 4] batch)
             zq = torch.stack([torch.sqrt(_dot3(v, v)) - RE for v in xps],
@@ -523,6 +533,57 @@ def hydrostatic_profile(ctl_hydz: float, z: np.ndarray, p: np.ndarray,
     return p
 
 
+def hydrostatic_profile_torch(ctl_hydz: float, z: np.ndarray, p, t, q_h2o,
+                              lat0: float):
+    """Differentiable hydrostatic rebuild (hydrostatic_1d_h2o,
+    jr_common.h:728-761) for ``retrieval.kernel_autodiff``: the twin of
+    the JAX package's ``hydrostatic_profile_jnp`` (geometry.py:548-578).
+
+    The reference's two sequential recursions
+    ``p[ip] = p[ip-+1] * exp(-1000 * mean * (z[ip] - z[ip-+1]))`` are one
+    cumulative sum in log-pressure around the reference level, which is
+    chosen on the host.  ``z`` and ``lat0`` are host values (the z-only
+    terms are float64 NumPy, as in JAX); ``p``, ``t`` and ``q_h2o`` are
+    tensors that may carry tangents, and the result takes their dtype
+    and device."""
+    z = np.asarray(z, np.float64)
+    ipref = int(np.argmin(np.abs(z - ctl_hydz)))
+    npts = 20
+    w = np.arange(npts) / (npts - 1.0)                       # [S]
+    zz = z[:-1, None] + (z[1:] - z[:-1])[:, None] * w        # [L, S]
+    grav = (9.780318 * (1.0 + 0.0053024 * np.sin(lat0 * DEG2RAD) ** 2
+                        - 5.8e-6 * np.sin(2 * lat0 * DEG2RAD) ** 2)
+            - 3.086e-3 * zz)
+
+    def ten(a):
+        return torch.as_tensor(a, dtype=t.dtype, device=t.device)
+    wt, dz = ten(w), ten(z[1:] - z[:-1])
+    e = torch.zeros_like(t) if q_h2o is None else q_h2o
+    tt = t[:-1, None] + (t[1:] - t[:-1])[:, None] * wt
+    ee = e[:-1, None] + (e[1:] - e[:-1])[:, None] * wt
+    mean = torch.sum((ee * MM_H2O + (1 - ee) * MM_AIR) * ten(grav)
+                     / (RGAS * tt * npts), dim=1)            # [L]
+    inc = 1000.0 * mean * dz
+    c = torch.cat([torch.zeros_like(inc[:1]), torch.cumsum(inc, 0)])
+    return torch.exp(torch.log(p[ipref]) - (c - c[ipref]))
+
+
+def profile_blocks(atm: Atm) -> list[tuple[int, int]]:
+    """(start, end) of each run of equal (lon, lat) on the atm point axis:
+    the profiles the hydrostatic rebuild takes one by one (hydrostatic,
+    jurassic.c:263-276)."""
+    lon0 = lat0 = -999.0
+    ip0 = 0
+    blocks = []
+    for ip in range(atm.npts):
+        if atm.lon[ip] != lon0 or atm.lat[ip] != lat0:
+            if ip > 0:
+                blocks.append((ip0, ip))
+            lon0, lat0, ip0 = atm.lon[ip], atm.lat[ip], ip
+    blocks.append((ip0, atm.npts))
+    return blocks
+
+
 def hydrostatic_atm(ctl: Ctl, atm: Atm) -> Atm:
     """Apply hydrostatic equilibrium to each (lon,lat,time) profile in atm
     (hydrostatic, jurassic.c:263-276)."""
@@ -532,16 +593,7 @@ def hydrostatic_atm(ctl: Ctl, atm: Atm) -> Atm:
         print("# apply hydrostatic equation to individual profiles")
         return atm
     ig_h2o = ctl.emitter_index("H2O")
-    lon0 = lat0 = -999.0
-    ip0 = 0
-    bounds = []
-    for ip in range(atm.npts):
-        if atm.lon[ip] != lon0 or atm.lat[ip] != lat0:
-            if ip > 0:
-                bounds.append((ip0, ip))
-            lon0, lat0, ip0 = atm.lon[ip], atm.lat[ip], ip
-    bounds.append((ip0, atm.npts))
-    for (a, b) in bounds:
+    for (a, b) in profile_blocks(atm):
         qh = atm.q[ig_h2o, a:b] if ig_h2o >= 0 else None
         atm.p[a:b] = hydrostatic_profile(
             ctl.hydz, atm.z[a:b], atm.p[a:b], atm.t[a:b], qh, atm.lat[a:b])

@@ -262,11 +262,19 @@ def ega_eps_fast(tbl: FastDeviceTables, tau_path, t, u_seg, p):
     u0 = torch.exp2(l2u0 + lo.to(dtype) * LOG2_RATIO_U)
     u_c = _lip(gather(lo), u0, gather(lo + 1), u0 * ratio, target4)
 
-    # forward: eps at u_c + u_seg; u index from log2 arithmetic
+    # forward: eps at u_c + u_seg; u index from log2 arithmetic, never
+    # below the interval the inversion found: u_new >= u_c >= u[lo]
+    # exactly, and where log2(exp2(.)) rounds a node down (u_c on the
+    # node u[lo], the segment too thin to move it) the interval below
+    # gives the same value to rounding but another slope -- in float32
+    # on a saturated limb path the primal then sits on the node step
+    # after step while a tangent grows by that slope ratio every step
+    # (a deviation from the JAX package's clip, ROADMAP.md section 3)
     u_new = u_c + u_seg.to(dtype).view(*u_seg.shape, 1, 1)
     k = (torch.log2(torch.clamp(u_new, min=1e-300)) - l2u0) / LOG2_RATIO_U
     ki = torch.minimum(k.to(torch.int32).long().clamp_min(0),
                        (nk - 2).clamp_min(0))
+    ki = torch.maximum(ki, lo)
     u_lo = torch.exp2(l2u0 + ki.to(dtype) * LOG2_RATIO_U)
     eps_c = _c01(_lip(u_lo, gather(ki), u_lo * ratio, gather(ki + 1),
                       u_new))                                # [R, G, 4, D]
