@@ -39,11 +39,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
     deviations: the kernels are reproducible run to run): in
     turbo mode at the turbo bar (5e-3 of max|rad|, 5e-3 on tau), with
     ``KERNEL pallas`` at the table bar (2e-3), and the float32 tangent
-    points within 1e-2 km / 1e-2 degrees;
+    points within 1e-2 km / 1e-2 degrees, none of them non-finite (the
+    tracer's guard of the parabola fit, ``geometry.tangent_point``);
 8.  flagship formod -- ``ForwardModel.formod`` with ``KERNEL = auto``
     (turbo), ``KERNEL = pallas`` (table) and on the roughened tables
-    (``turbo+hybrid``): warm-up, median wall time, rays*channels/s, a
-    trace / kernel / D2H split.  The launch counts are set to 0 just
+    (``turbo+hybrid``): warm-up, median wall time, rays*channels/s, and
+    the phase split of the median call itself (``ForwardModel.phase_log``:
+    CUDA events at the boundaries of hydrostatics, trace, kernel(s),
+    epilogue, D2H, the hybrid re-run and the host's FOV and mask inside
+    each timed call), whose parts must add up to within 5 % of that
+    call's wall time.  The launch counts are set to 0 just
     before each path and read just after: one launch of each kernel the
     path runs per formod call.  The table result must lie within 2e-3 of
     max|rad| of the turbo result (the table-vs-turbo chord) and not
@@ -51,7 +56,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     result within 2e-3 of the table result on the same tables, and bit
     for bit the table kernel's output on tainted lanes and the turbo
     kernel's on all others; then one profiled formod: device busy time
-    and kernel launches.
+    and kernel launches, the fused kernels' time taken from CUDA events
+    recorded around their launches (``ega_fused.LAUNCH_EVENTS``) in the
+    same call, in place of whatever the profiler recorded of them.
 9.  eager oracles -- ``KERNEL = exact`` in float64 on the card on the
     ``limb``, ``nadir``, ``ega``, ``flagship``, ``gas30`` and ``fov``
     goldens at the JAX package's bars (``flagship`` and ``gas30`` with
@@ -77,7 +84,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (T and the 4 gases' vmr at the 26 levels of 10-60 km) in float64 and
     float32: wall time, packages, peak memory against the sizing
     estimate, max|K|, and float32 held to float64 per quantity of its own
-    max|K| (``AD_F32_TOL``); the host cost of one operation under
+    max|K| (``AD_F32_TOL``), the sizing estimate within 2x of the
+    measured peak in both dtypes, and how many packages the float64
+    Jacobian runs; the host cost of one operation under
     ``jacfwd`` (``jvp_dispatch``); device launches and busy time
     (CUDA-activity profiler) of the float32 pass and of the float64
     package of the packages check below; the FD
@@ -87,7 +96,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
     at the JAX package's bars (2e-2 of max|K| plus 0.05 relative); the
     float64 autodiff on the card against the CPU on a small case (1e-10
     of max|K|); the packages bit for bit: one package of every fourth ray
-    (271) against those rays' rows of the packaged 1084-ray run.
+    (271) against those rays' rows of the packaged 1084-ray run;
+13. multi-GPU (torch.distributed) -- ``parallel.ShardedForwardModel`` at
+    the full flagship: on an NCCL group of one process (a 1 x 1 mesh) in
+    ``KERNEL = auto`` and ``pallas``, bit for bit plain ``formod``, the
+    collective's time and the median beside plain ``formod``'s; then two
+    gloo processes sharing the card (NCCL takes one rank per card) on the
+    2 x 1 and 1 x 2 meshes in ``auto``, ``pallas`` and the roughened
+    hybrid (taint on both ranks of the ray split), each rank on its own
+    channel range of the tables, its turbo fit read from the cache: bit
+    for bit plain ``formod``, launches of both fused kernels under the
+    1 x 2 mesh, medians, and the phase's seconds.
 
 Every model here is built with USEGPU = 1 on the CUDA device and every
 CLI run passes ``USEGPU 1``: nothing can fall back to the CPU or to a
@@ -121,14 +140,17 @@ TAINT_FLIP_MAX = 1e-3   # share of lanes whose taint may differ
 # vs the C oracle (test_pallas_kernel.py:105 turbo, :28-38 table)
 GOLDEN_TOL = {"turbo": 5e-3, "pallas": 2e-3}
 CHORD_TOL = 2e-3        # table vs turbo on the same tables, of max|rad|
-# float32 tangent points vs the C oracle, km and degrees, and the rays
-# allowed non-finite ones: JAX's float32 tracer's count on each golden
+# float32 tangent points vs the C oracle, km and degrees
 # (tests/test_torch_geometry_f32.py)
 TP_TOL = 1e-2
-MAX_NONFINITE_TP = {"ega": 0, "nadir": 8}
 N_KERNEL_RUNS = 10
 N_FORMOD_RUNS = 3
 N_PACKAGED_RUNS = 2
+N_MGPU_RUNS = 2          # timed sharded formods per mesh and mode
+N_NCCL_RUNS = 5          # NCCL world size 1: sharded and plain, in turns
+PHASE_SPLIT_TOL = 0.05   # the median call's parts vs its wall time
+AD_EST_RATIO = 2.0       # autodiff sizing estimate vs measured peak
+OUTPUTS = ("rad", "tau", "tpz", "tplon", "tplat")
 RAYPACK = 271            # the flagship's 1084 rays in 4 packages
 # the JAX package's bars against the C oracle (tests/test_forward_golden.py
 # :46-70, tests/test_flagship_golden.py:64-107, tests/test_gas30_golden.py
@@ -383,33 +405,37 @@ def run_golden(case: str, kernel: str, bench: int = 0) -> None:
           f"rad {e_rad:.3e} of max|rad|, tau {e_tau:.3e} "
           f"(bar {tol}); tangent points z/lon/lat "
           f"{e_tp[0]:.3e} km / {e_tp[1]:.3e} / {e_tp[2]:.3e} deg (bar "
-          f"{TP_TOL}), non-finite on {n_tp} rays (at most "
-          f"{MAX_NONFINITE_TP[case]}); CLI {dt:.1f} s; {last[-1]}",
+          f"{TP_TOL}), non-finite on {n_tp} rays (none allowed); CLI "
+          f"{dt:.1f} s; {last[-1]}",
           flush=True)
     if not (np.isfinite(rad).all() and np.isfinite(tau).all()
             and e_rad <= tol and e_tau <= tol):
         fail(f"golden {case} ({kernel}): port differs from the C oracle")
-    if not ((e_tp <= TP_TOL).all() and n_tp <= MAX_NONFINITE_TP[case]):
+    if not ((e_tp <= TP_TOL).all() and n_tp == 0):
         fail(f"golden {case}: tangent points differ from the C oracle")
 
 
 def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
                  per_call: tuple):
     """Warm-up plus N_FORMOD_RUNS timed ``fm.formod`` calls with the
-    launch counts set to 0 just before and read just after, then the
-    phase split of one more call.  ``per_call`` is the (turbo, table)
-    launches one call must make.  Returns (median wall seconds, the last
-    timed call's radiances [R, D] float64, launches (turbo, table))."""
+    launch counts set to 0 just before and read just after, each call
+    splitting its own time (``fm.phase_log``); prints the split of the
+    median call, whose parts must add up to within PHASE_SPLIT_TOL of
+    its wall time.  ``per_call`` is the (turbo, table) launches one call
+    must make.  Returns (median wall seconds, the last timed call's
+    radiances [R, D] float64, launches (turbo, table))."""
     import numpy as np
     R, D = obs.nr, fm.ctl.nd
     ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
     fm.formod(atm.copy(), obs.copy())                  # warm-up
     walls = []
+    fm.phase_log = []
     for _ in range(N_FORMOD_RUNS):
         o_run = obs.copy()
         t0 = time.perf_counter()
         fm.formod(atm.copy(), o_run)
         walls.append(time.perf_counter() - t0)
+    splits, fm.phase_log = fm.phase_log, None
     launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
     n = N_FORMOD_RUNS + 1
     if launches != (per_call[0] * n, per_call[1] * n):
@@ -417,59 +443,40 @@ def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
              f"{launches} times over {n} formod runs")
     if fm.last_variant != variant:
         fail(f"{label}: ran variant {fm.last_variant}, expected {variant}")
-    # phase split of one more formod, synchronising between phases
-    a, o = atm.copy(), obs.copy()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    los_f = fm.trace(a, o)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out = fm.integrate(los_f)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    host = fm.outputs_to_host((out.rad, out.tau, los_f.tpz, los_f.tplon,
-                               los_f.tplat))
-    t3 = time.perf_counter()
     wall = statistics.median(walls)
     print(f"{label}: median {wall * 1e3:.1f} ms over "
           f"{N_FORMOD_RUNS} runs (min {min(walls) * 1e3:.1f}, max "
           f"{max(walls) * 1e3:.1f}); {R * D / wall:,.0f} rays*ch/s; "
           f"kernel launches turbo {launches[0]} table {launches[1]}; "
           f"variant {fm.last_variant}", flush=True)
-    print(f"{label} phase split: hydrostatics + trace "
-          f"{(t1 - t0) * 1e3:.1f} ms, fused kernel(s) + epilogue "
-          f"{(t2 - t1) * 1e3:.1f} ms, D2H {(t3 - t2) * 1e3:.1f} ms",
-          flush=True)
+    i_med = sorted(range(len(walls)), key=walls.__getitem__)[len(walls) // 2]
+    split, wall_ms = splits[i_med], walls[i_med] * 1e3
+    total = sum(split.values())
+    print(f"{label} phase split of the median call (CUDA events inside "
+          "it): " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+          + f"; parts {total:.1f} ms of its {wall_ms:.1f} ms wall "
+          f"({total / wall_ms - 1:+.2%})", flush=True)
+    if not abs(total - wall_ms) <= PHASE_SPLIT_TOL * wall_ms:
+        fail(f"{label}: the phase split does not add up to the call")
     rad = o_run.rad
     if rad.shape != (R, D) or not np.isfinite(rad).all():
         fail(f"{label}: output malformed: {rad.shape}")
-    if not np.array_equal(host[0], rad):
-        fail(f"{label}: formod and its phase-split rerun differ")
     return wall, rad, launches
 
 
 def profile_formod(torch, fm, atm, obs, wall_ms: float) -> None:
     """Device time and kernel launches of one flagship formod
-    (torch.profiler, CUDA activity only): where the time goes.  The busy
-    share is taken of ``wall_ms``, the median formod time without the
-    profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fm.formod(atm.copy(), obs.copy())
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels = device_events(prof)
-    busy_ms = sum(ns for _, ns in kernels) / 1e6
-    if not kernels or busy_ms <= 0:
-        fail("the profiler recorded no device time")
+    (torch.profiler, CUDA activity only, the fused kernels by CUDA
+    events; ``profiled_call``): where the time goes.  The busy share is
+    taken of ``wall_ms``, the median formod time without the profiler."""
+    _, wall, n, busy, ks = profiled_call(
+        torch, lambda: fm.formod(atm.copy(), obs.copy()), names=True)
     print(f"flagship formod profiled: {wall * 1e3:.1f} ms wall (with "
-          f"profiler), device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}"
+          f"profiler), device busy {busy:.1f} ms ({busy / wall_ms:.1%}"
           f" of the {wall_ms:.1f} ms median formod), "
-          f"{len(kernels)} device kernel launches", flush=True)
+          f"{n} device kernel launches", flush=True)
     by_name: dict = {}
-    for name, ns in kernels:
+    for name, ns in ks:
         count, total = by_name.get(name, (0, 0))
         by_name[name] = (count + 1, total + ns)
     for name, (count, total) in sorted(by_name.items(),
@@ -669,22 +676,37 @@ def device_events(prof) -> list:
             if e.device_type() == DeviceType.CUDA]
 
 
-def profiled_call(torch, fn):
-    """(result, wall seconds, device kernel launches, device busy ms) of
-    ``fn()`` under torch.profiler with CUDA activity only (recording the
-    host's operators too slows a launch-bound pass ten times over)."""
+def profiled_call(torch, fn, names: bool = False):
+    """(result, wall seconds, device kernel launches, device busy ms[,
+    (name, ns) events]) of ``fn()`` under torch.profiler with CUDA
+    activity only (recording the host's operators too slows a
+    launch-bound pass ten times over).  The fused kernels' device time is
+    taken from CUDA events recorded around each of their launches in the
+    same call (``ega_fused.LAUNCH_EVENTS``), in place of the profiler's
+    records of them, which are printed beside it."""
     from torch.profiler import ProfilerActivity, profile
+
+    from jurassic_torch.ops import ega_fused
     torch.cuda.synchronize()
+    ega_fused.LAUNCH_EVENTS = []
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    events, ega_fused.LAUNCH_EVENTS = ega_fused.LAUNCH_EVENTS, None
     ks = device_events(prof)
-    busy = sum(ns for _, ns in ks) / 1e6
+    fused = [ns for name, ns in ks if "ega_fused_kernel" in name]
+    fused_ms = sum(a.elapsed_time(b) for _, a, b in events)
+    busy = (sum(ns for _, ns in ks) - sum(fused)) / 1e6 + fused_ms
+    n = len(ks) - len(fused) + len(events)
+    if events:
+        print(f"  fused kernels: {len(events)} launch(es), {fused_ms:.2f} ms "
+              f"by CUDA events; the profiler recorded {len(fused)} of them "
+              f"({sum(fused) / 1e6:.2f} ms)", flush=True)
     if not ks or busy <= 0:
         fail("the profiler recorded no device time")
-    return out, wall, len(ks), busy
+    return (out, wall, n, busy) + ((ks,) if names else ())
 
 
 def device_pass(torch, fn):
@@ -926,6 +948,9 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
     if not (K.shape == (obs.nr * ctl.nd, n) and np.isfinite(K).all()
             and scale > 0):
         fail(f"{label}: the Jacobian is malformed")
+    if not peak / AD_EST_RATIO <= est <= AD_EST_RATIO * peak:
+        fail(f"{label}: the sizing estimate is not within {AD_EST_RATIO}x "
+             "of the measured peak")
     return K, obs.nr, npk
 
 
@@ -986,6 +1011,8 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     K64, nr, npk = autodiff_run(torch, ForwardModel, flagship, dev,
                                 torch.float64, "flagship retrieval autodiff",
                                 profiled=False)
+    print(f"the float64 flagship Jacobian runs {npk} package(s) on this "
+          "card", flush=True)
     K32, _, _ = autodiff_run(torch, ForwardModel, flagship, dev,
                              torch.float32, "flagship retrieval autodiff")
     scale = np.abs(K64).max()
@@ -1073,6 +1100,225 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     if not (same and (npk > 1 or npk_cut > 1)):
         fail("packaged and one-package Jacobian rows differ")
     return fd_launches["auto"][0], fd_launches["pallas"][1]
+
+
+def mgpu_rank(rank: int, port: int, ref_file: str, out_dir: str) -> None:
+    """One of two gloo ranks sharing cuda:0 (phase 13): the flagship
+    through ``ShardedForwardModel`` on the 2 x 1 and 1 x 2 meshes in
+    ``auto``, ``pallas`` and the roughened hybrid.  The turbo fits are
+    read from FIT_CACHE (the build phase fitted them): a fit here fails
+    the rank.  Writes its timings, launches and verdicts (bit for bit
+    the plain formod outputs in ``ref_file``) to
+    ``<out_dir>/mgpu_<rank>.json``; any fault raises, and the parent
+    fails."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from jurassic_torch.ops import ega_fused
+    from jurassic_torch.ops.turbo_fit import build_turbo_tables_cached
+    from jurassic_torch.parallel import (ShardedForwardModel,
+                                         init_distributed, make_mesh)
+    from jurassic_torch.workloads import flagship
+    torch.set_num_threads(2)
+    init_distributed("gloo", f"tcp://localhost:{port}", 2, rank)
+    try:
+        dev = torch.device("cuda", 0)
+        ctl, ft, atm, obs = flagship()
+        ctl.usetpu = 1
+        n_cache = len(list(FIT_CACHE.glob("turbo_*.npz")))
+        t0 = time.perf_counter()
+        tt, st = build_turbo_tables_cached(ft, FIT_CACHE)
+        ft_r = roughen(ft)
+        tt_r, st_r = build_turbo_tables_cached(ft_r, FIT_CACHE)
+        res = {"fit_cache_load_s": time.perf_counter() - t0}
+        if len(list(FIT_CACHE.glob("turbo_*.npz"))) != n_cache:
+            raise RuntimeError(f"rank {rank} fitted turbo tables anew")
+        ref = np.load(ref_file)
+        models = {
+            "auto": ("auto", dict(fast_tables=ft, turbo_tables=tt,
+                                  turbo_stats=st)),
+            "pallas": ("pallas", dict(fast_tables=ft)),
+            "hybrid": ("turbo", dict(fast_tables=ft_r, turbo_tables=tt_r,
+                                     turbo_stats=st_r))}
+        for mesh in ((2, 1), (1, 2)):
+            for mode, (kernel, kw) in models.items():
+                c = dataclasses.replace(ctl, kernel=kernel)
+                m = ShardedForwardModel(c, make_mesh(*mesh), device=dev, **kw)
+                ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+                m.formod(atm.copy(), obs.copy())          # warm-up
+                walls, gathers = [], []
+                for _ in range(N_MGPU_RUNS):
+                    o = obs.copy()
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    m.formod(atm.copy(), o)
+                    walls.append(time.perf_counter() - t0)
+                    gathers.append(m.last_gather_s)
+                res[f"{mesh[0]}x{mesh[1]} {mode}"] = {
+                    "median_ms": statistics.median(walls) * 1e3,
+                    "gather_ms": statistics.median(gathers) * 1e3,
+                    "launches": [ega_fused.LAUNCHES,
+                                 ega_fused.LAUNCHES_TABLE],
+                    "calls": N_MGPU_RUNS + 1, "variant": m.last_variant,
+                    "channels": m.local.ctl.nd,
+                    "same": all(np.array_equal(getattr(o, f),
+                                               ref[f"{mode}_{f}"])
+                                for f in OUTPUTS)}
+                del m
+                torch.cuda.empty_cache()
+        (Path(out_dir) / f"mgpu_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mgpu_expected(key: str, rank: int):
+    """(variant, (turbo, table) launches per call) of one rank of phase
+    13's two: the roughened cells are in channel 2, so the hybrid taints
+    lanes on both ranks of the ray split and on rank 0 only of the
+    channel split, whose rank 1 runs pure turbo."""
+    mode = key.split()[1]
+    if mode == "auto":
+        return "turbo", (1, 0)
+    if mode == "pallas":
+        return "table", (0, 1)
+    if key.startswith("1x2") and rank == 1:
+        return "turbo", (1, 0)
+    return "turbo+hybrid", (1, 1)
+
+
+def ms_spread(walls) -> str:
+    """'median ms (min-max)' of wall seconds."""
+    ms = sorted(w * 1e3 for w in walls)
+    return f"{statistics.median(ms):.1f} ms ({ms[0]:.1f}-{ms[-1]:.1f})"
+
+
+def mgpu_phase(torch, ForwardModel, flagship, ft, tt, stats, tt_r, stats_r,
+               dev):
+    """Phase 13: the sharded model on an NCCL group of one process, timed
+    in turns with plain formod, then two gloo ranks on the one card, then
+    ``python -m jurassic_torch.parallel.dryrun 2`` (gloo, both ranks on
+    the card).  Returns the (turbo, table) launches of both ranks under
+    the 1 x 2 mesh (``auto`` / ``pallas``) and the calls they span."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    from jurassic_torch.parallel import (ShardedForwardModel,
+                                         init_distributed, make_mesh)
+    from jurassic_torch.parallel.dryrun import free_port
+    t_phase = time.perf_counter()
+    ctl, _, atm, obs = flagship()
+    ctl.usetpu = 1
+    ft_r = roughen(ft)
+    models = {
+        "auto": ("auto", dict(fast_tables=ft, turbo_tables=tt,
+                              turbo_stats=stats)),
+        "pallas": ("pallas", dict(fast_tables=ft)),
+        "hybrid": ("turbo", dict(fast_tables=ft_r, turbo_tables=tt_r,
+                                 turbo_stats=stats_r))}
+    refs = {}
+    init_distributed("nccl", f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        for mode in ("auto", "pallas"):
+            kernel, kw = models[mode]
+            c = dataclasses.replace(ctl, kernel=kernel)
+            pair = {"plain": ForwardModel(c, device=dev, **kw),
+                    "sharded": ShardedForwardModel(c, make_mesh(1, 1),
+                                                   device=dev, **kw)}
+            walls = {k: [] for k in pair}
+            outs, gathers = {}, []
+            for m in pair.values():
+                m.formod(atm.copy(), obs.copy())          # warm-up
+            for i in range(N_NCCL_RUNS):                  # in turns
+                for k in (("plain", "sharded") if i % 2 == 0
+                          else ("sharded", "plain")):
+                    o = obs.copy()
+                    t0 = time.perf_counter()
+                    pair[k].formod(atm.copy(), o)
+                    walls[k].append(time.perf_counter() - t0)
+                    outs[k] = o
+                gathers.append(pair["sharded"].last_gather_s)
+            refs.update({f"{mode}_{f}": getattr(outs["plain"], f)
+                         for f in OUTPUTS})
+            same = all(np.array_equal(getattr(outs["sharded"], f),
+                                      getattr(outs["plain"], f))
+                       for f in OUTPUTS)
+            m = pair["sharded"]
+            print(f"NCCL world size 1, 1 x 1 mesh, {mode}: variant "
+                  f"{m.last_variant} on {m.device}; {N_NCCL_RUNS} calls "
+                  f"each in turns, median (min-max): sharded "
+                  f"{ms_spread(walls['sharded'])}, plain formod "
+                  f"{ms_spread(walls['plain'])}; the all-gather "
+                  f"{statistics.median(gathers) * 1e3:.3f} ms; bit for bit "
+                  f"plain formod: {same}", flush=True)
+            if not (same and m.last_variant == pair["plain"].last_variant
+                    and dist.get_backend() == "nccl"):
+                fail(f"NCCL world size 1 ({mode}) differs from plain formod")
+            del pair, m
+    finally:
+        dist.destroy_process_group()
+    kernel, kw = models["hybrid"]
+    o = obs.copy()
+    ForwardModel(dataclasses.replace(ctl, kernel=kernel), device=dev,
+                 **kw).formod(atm.copy(), o)
+    refs.update({f"hybrid_{f}": getattr(o, f) for f in OUTPUTS})
+    torch.cuda.empty_cache()
+    work = REPO / "jurassic_torch" / "_build" / "smoke" / "mgpu"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ref_file = work / "plain.npz"
+    np.savez(ref_file, **refs)
+
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        mgpu_rank, args=(free_port(), str(ref_file), str(work)), nprocs=2,
+        join=True, start_method="spawn")
+    ranks = [json.loads((work / f"mgpu_{r}.json").read_text())
+             for r in range(2)]
+    print(f"two gloo ranks on one card: {time.perf_counter() - t0:.1f} s "
+          f"with start-up; fit cache reads "
+          f"{ranks[0]['fit_cache_load_s']:.1f} / "
+          f"{ranks[1]['fit_cache_load_s']:.1f} s", flush=True)
+    for key in ranks[0]:
+        if key == "fit_cache_load_s":
+            continue
+        rs = [r[key] for r in ranks]
+        print(f"  {key}: " + "; ".join(
+            f"rank {i}: {r['channels']} channels, variant {r['variant']}, "
+            f"median {r['median_ms']:.1f} ms (all-gather "
+            f"{r['gather_ms']:.2f} ms), launches turbo {r['launches'][0]} "
+            f"table {r['launches'][1]}, bit for bit {r['same']}"
+            for i, r in enumerate(rs)), flush=True)
+        for i, r in enumerate(rs):
+            variant, per = mgpu_expected(key, i)
+            n = r["calls"]
+            if not (r["same"] and r["variant"] == variant
+                    and r["launches"] == [per[0] * n, per[1] * n]):
+                fail(f"two ranks, {key}, rank {i}: variant {r['variant']} "
+                     f"(expected {variant}), launches {r['launches']} "
+                     f"(expected {per} per call), bit for bit {r['same']}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "jurassic_torch.parallel.dryrun", "2"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("dryrun")]
+    print(f"python -m jurassic_torch.parallel.dryrun 2: rc "
+          f"{res.returncode}, {time.perf_counter() - t0:.1f} s with "
+          "start-up", flush=True)
+    for ln in lines:
+        print(f"  {ln}", flush=True)
+    on_card = [ln for ln in lines if "on cuda:0 (gloo)" in ln]
+    if res.returncode != 0 or len(on_card) != 3:
+        print(res.stderr[-4000:], file=sys.stderr)
+        fail("the dryrun did not run its three kernels on the card")
+    dt = time.perf_counter() - t_phase
+    print(f"multi-GPU phase: {dt:.1f} s", flush=True)
+    l12 = [sum(r[f"1x2 {m}"]["launches"][k] for r in ranks)
+           for m, k in (("auto", 0), ("pallas", 1))]
+    return l12, ranks[0]["1x2 auto"]["calls"]
 
 
 def main() -> None:
@@ -1375,6 +1621,11 @@ def main() -> None:
                                          flagship, small_limb, tt, stats,
                                          dev)
 
+    phase("multi-GPU (torch.distributed)")
+    torch.cuda.empty_cache()
+    (mg_turbo, mg_table), mg_calls = mgpu_phase(
+        torch, ForwardModel, flagship, ft, tt, stats, tt_r, stats_r, dev)
+
     import_hygiene()
 
     print(card, flush=True)
@@ -1390,7 +1641,11 @@ def main() -> None:
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "jacobian_launches": fd_turbo,
          "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
-                                 "auto, n = 5 (6 formods)"},
+                                 "auto, n = 5 (6 formods)",
+         "launches_1x2": mg_turbo,
+         "launches_1x2_on": f"flagship formod KERNEL = auto over a 1 x 2 "
+                            f"mesh, two gloo ranks on one card, both ranks, "
+                            f"{mg_calls} calls"},
         {"name": "ega_fused_table", **fused,
          "source": "jurassic_torch/csrc/ega_fused_table.cu",
          "replaces": "jurassic_tpu/ops/pallas/ega_fused.py:859",
@@ -1401,7 +1656,11 @@ def main() -> None:
          "ms": kt_ms, "plain_ms": pt_ms, "bound_ms": bt_ms,
          "bound_by": bt_by, "jacobian_launches": fd_table,
          "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
-                                 "pallas, n = 5 (6 formods)"},
+                                 "pallas, n = 5 (6 formods)",
+         "launches_1x2": mg_table,
+         "launches_1x2_on": f"flagship formod KERNEL = pallas over a 1 x 2 "
+                            f"mesh, two gloo ranks on one card, both ranks, "
+                            f"{mg_calls} calls"},
         *probe_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

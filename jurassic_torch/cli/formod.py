@@ -26,7 +26,7 @@ import time
 
 import numpy as np
 
-from ..forward import ForwardModel
+from ..forward import ForwardModel, channel_ctl
 from ..geometry import hydrostatic_atm
 from ..io_tab import read_atm, read_obs, write_obs
 from ..ops import ega_fused
@@ -70,8 +70,7 @@ def _bench_scaling(fm: ForwardModel, atm, obs) -> None:
     while nd <= ctl.nd:
         print(f"# with channels\n# with {nd} channels measure "
               "formod time")
-        fm_b = fm.channel_model(dataclasses.replace(
-            ctl, nd=nd, nu=list(ctl.nu[:nd]), window=list(ctl.window[:nd])))
+        fm_b = fm.channel_model(channel_ctl(ctl, nd))
         nr = 1
         while nr <= obs.nr:
             obs_b = obs.copy()

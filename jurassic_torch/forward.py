@@ -35,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -57,7 +58,8 @@ from .ops.ega_fused import (N_SEG, pack_continua, rt_fused_table,
 from .ops.table_pack import TableTables, build_table_tables
 from .ops.turbo_fit import (CHORD_TOL, FIT_TOL, TurboStats, TurboTables,
                             build_turbo_tables, load_turbo_tables,
-                            save_turbo_tables, slice_turbo_tables)
+                            pad_small_axes, save_turbo_tables,
+                            slice_turbo_tables, uniform_axes)
 from .tables import (EgaTables, FastTables, build_fast_tables,
                      cache_filename, load_tables_cached)
 
@@ -164,7 +166,12 @@ def rt_integrate(tbl, sr, st, nu, cc, window, los: LosData, tsurf, flags,
                       q_h2o[:, None], u_co2[:, None], u_h2o[:, None])
         # EGA transmittance update (apply_ega_core, jr_common.h:271-280)
         factor = ega(tbl, tau_path, t, u, p)                   # [R, G, D]
-        tau_gas = torch.prod(factor, dim=1)                    # [R, D]
+        # gas by gas, not torch.prod: on CUDA the reduction's order
+        # depends on D, so a channel range would not give the bits of
+        # the full model
+        tau_gas = factor[:, 0]                                 # [R, D]
+        for g in range(1, G):
+            tau_gas = tau_gas * factor[:, g]
         tau_path = torch.where(valid[:, None, None], tau_path * factor,
                                tau_path)
         # source term (src_planck_core) + integration (new_obs_core,
@@ -230,11 +237,115 @@ def _obs_rows(obs: Obs, sl: slice) -> Obs:
                   for f in dataclasses.fields(Obs)})
 
 
-def channel_slice(tbl, nd: int):
-    """EgaTables or FastTables of the first ``nd`` channels (every field
-    but the source axis ``st`` has the channel axis last)."""
-    return tbl._replace(**{f: np.ascontiguousarray(getattr(tbl, f)[..., :nd])
-                           for f in tbl._fields if f != "st"})
+def channel_slice(tbl, nd: int, d0: int = 0):
+    """EgaTables or FastTables of the ``nd`` channels from ``d0`` on
+    (every field but the source axis ``st`` has the channel axis last)."""
+    return tbl._replace(**{
+        f: np.ascontiguousarray(getattr(tbl, f)[..., d0:d0 + nd])
+        for f in tbl._fields if f != "st"})
+
+
+def channel_ctl(ctl: Ctl, nd: int, d0: int = 0) -> Ctl:
+    """A copy of ``ctl`` cut to the ``nd`` channels from ``d0`` on: ND,
+    NU and the channel -> window map (the continua follow NU)."""
+    return dataclasses.replace(ctl, nd=nd, nu=list(ctl.nu[d0:d0 + nd]),
+                               window=list(ctl.window[d0:d0 + nd]))
+
+
+def turbo_fit_rejected(stats: TurboStats, n_bad: int) -> bool:
+    """The JAX package's acceptance gate of a turbo fit
+    (forward.py:383-437): the fit error and chord deviation of the good
+    rows bound turbo against the emissivity curve and the table kernel's
+    chords, and at most ``hybrid_max()`` of the rows may fail the
+    per-row gate."""
+    return (max(stats.max_fwd_err, stats.max_inv_err) > FIT_TOL
+            or stats.max_chord_dev > CHORD_TOL
+            or n_bad / max(stats.rows, 1) > hybrid_max())
+
+
+def fused_kernel(kernel: str, fast_tables: FastTables,
+                 rejected: str | None = None) -> str:
+    """What a KERNEL = auto|turbo|pallas model runs on ``fast_tables``
+    (forward.py:363-445): the one policy of the single-card and the
+    sharded model.  Tables whose axes are not channel-uniform have no
+    fused form: an error under turbo and pallas, the eager fast pipeline
+    ``"jax"`` under auto (one printed line).  A turbo fit that failed
+    :func:`turbo_fit_rejected` (``rejected`` says why) is an error under
+    turbo and the table kernel ``"pallas"`` under auto.  Else
+    ``kernel``."""
+    if uniform_axes(pad_small_axes(fast_tables)) is None:
+        if kernel != "auto":
+            raise ValueError(
+                f"KERNEL = {kernel} requires channel-uniform table axes "
+                "per gas (table build returned None); use KERNEL = jax for "
+                "ragged-across-channel tables")
+        print("# KERNEL = auto: the table axes are not channel-uniform; "
+              "running the eager fast pipeline (KERNEL = jax)")
+        return "jax"
+    if rejected is not None and kernel != "pallas":
+        if kernel == "turbo":
+            raise ValueError("KERNEL = turbo: Chebyshev fit validation "
+                             f"failed ({rejected}); these tables need "
+                             "KERNEL = pallas")
+        return "pallas"
+    return kernel
+
+
+def turbo_tables_cached(ctl: Ctl, tables: EgaTables | None,
+                        fast_tables: FastTables, directory):
+    """build_turbo_tables behind a file beside the table cache for
+    file-backed tables (forward.py:469-515), under READ_BINARY /
+    WRITE_BINARY, keyed like the table cache (configuration and table
+    file freshness).  The file is the port's own
+    (``jurassic_torch_tables_<hash>_turbo.npz``) and holds the logical
+    coefficient rows."""
+    cf = None
+    if tables is not None and ctl.tblbase != "-":
+        base = cache_filename(ctl, directory)
+        cf = base.with_name(f"{base.stem}_turbo.npz")
+    if cf is not None and ctl.read_binary and cf.exists():
+        return load_turbo_tables(cf)
+    tt, stats = build_turbo_tables(fast_tables)
+    if tt is None:
+        return None, None
+    print(f"# turbo tables: {stats.rows} rows fitted, max fwd err "
+          f"{stats.max_fwd_err:.2e}, inv roundtrip "
+          f"{stats.max_inv_err:.2e}, chord dev "
+          f"{stats.max_chord_dev:.2e}, "
+          f"{tt.coef.numel() * 4 / 1e6:.1f} MByte on the device")
+    if cf is not None and ctl.write_binary:
+        save_turbo_tables(cf, tt, stats)
+    return tt, stats
+
+
+class PhaseClock:
+    """Where one ``formod`` call's time goes, taken inside that call: a
+    mark at every phase boundary -- a CUDA event on the current stream on
+    a card, the host clock on the CPU.  :meth:`split` sums the
+    milliseconds between consecutive marks under the name of the mark
+    that ends them, so the parts add up to the call."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks: list = []
+        self.mark("begin")
+
+    def mark(self, name: str) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        else:
+            ev = time.perf_counter()
+        self.marks.append((name, ev))
+
+    def split(self) -> dict:
+        if self.cuda:
+            self.marks[-1][1].synchronize()
+        out: dict = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+            out[name] = out.get(name, 0.0) + ms
+        return out
 
 
 class EagerTables(NamedTuple):
@@ -263,7 +374,12 @@ class ForwardModel:
     CUDA; pass ``torch.float64`` to run the eager oracle in double
     precision on the card -- the fused CUDA kernels take float32 LOS
     only).  ``turbo_tables`` (with ``turbo_stats``) injects tables
-    fitted elsewhere from the given tables, e.g. a cached fit.
+    fitted elsewhere from the given tables, e.g. a cached fit (the
+    acceptance gate reads ``turbo_stats``: for a channel range, those of
+    the fit of all channels decide as the full model does).
+
+    ``phase_log``: when set to a list, every :meth:`formod` appends the
+    split of its own time (:class:`PhaseClock`).
 
     After construction ``kernel_mode`` is ``"fused"``, ``"exact"`` or
     ``"fast"``; in fused mode ``turbo_tbl`` holds the turbo tables (None
@@ -299,6 +415,8 @@ class ForwardModel:
         self.last_variant: str | None = None
         self._raypack_printed = None
         self._streams = None
+        self.phase_log: list | None = None
+        self._clock: PhaseClock | None = None
         if use_fast:
             if fast_tables is None:
                 fast_tables = build_fast_tables(tables)
@@ -334,113 +452,64 @@ class ForwardModel:
 
     def _init_fused(self, fast_tables, turbo_tables, turbo_stats,
                     directory) -> None:
-        """KERNEL = auto|turbo|pallas: the fused pass's tables
-        (forward.py:363-445).  Tables whose axes are not channel-uniform
-        have no fused form: an error under turbo and pallas, the eager
-        fast pipeline under auto."""
-        ctl = self.ctl
-        if ctl.kernel != "pallas":
+        """KERNEL = auto|turbo|pallas: the fused pass's tables, or the
+        eager fast pipeline where :func:`fused_kernel` demotes auto."""
+        kernel = fused_kernel(self.ctl.kernel, fast_tables)
+        if kernel == "jax":
+            return
+        if kernel != "pallas":
             self._init_turbo(fast_tables, turbo_tables, turbo_stats,
                              directory)
         if self.turbo_tbl is None:
             self.table_tbl = build_table_tables(fast_tables, self.device)
-        if self.turbo_tbl is not None or self.table_tbl is not None:
-            self.kernel_mode = "fused"
-            return
-        if ctl.kernel != "auto":
-            raise ValueError(
-                f"KERNEL = {ctl.kernel} requires channel-uniform table axes "
-                "per gas (table build returned None); use KERNEL = jax for "
-                "ragged-across-channel tables")
-        print("# KERNEL = auto: the table axes are not channel-uniform; "
-              "running the eager fast pipeline (KERNEL = jax)")
+        self.kernel_mode = "fused"
 
     def _init_turbo(self, fast_tables: FastTables,
                     turbo_tables: TurboTables | None,
                     turbo_stats: TurboStats | None, directory) -> None:
-        """KERNEL = turbo|auto: fit (or take, or read from the file cache)
-        the turbo tables and apply the JAX package's acceptance gate
-        (forward.py:383-437).  The fit error and chord deviation of the
-        good rows bound turbo against the emissivity curve and the table
-        kernel's chords, and at most ``hybrid_max()`` of the rows may fail
-        the per-row gate.  Accepted tables with bad rows also get their
-        exact backing for the hybrid.  A rejected fit (or bad rows without
-        a backing) is an error under KERNEL = turbo and leaves
-        ``turbo_tbl`` None under auto, which the caller demotes to the
-        table kernel."""
+        """KERNEL = turbo|auto on channel-uniform tables: fit (or take, or
+        read from the file cache) the turbo tables and apply the JAX
+        package's acceptance gate (:func:`turbo_fit_rejected`).  Accepted
+        tables with bad rows also get their exact backing for the hybrid.
+        A rejected fit is an error under KERNEL = turbo and leaves
+        ``turbo_tbl`` None under auto: the table kernel
+        (:func:`fused_kernel`)."""
         if turbo_tables is None:
-            turbo_tables, turbo_stats = self._turbo_tables_cached(
-                fast_tables, directory)
-            if turbo_tables is None:
-                return          # ragged axes: the caller decides
+            turbo_tables, turbo_stats = turbo_tables_cached(
+                self.ctl, self.tables, fast_tables, directory)
         elif turbo_stats is None:
             raise ValueError("turbo_tables need the turbo_stats of their fit")
         st, n_bad = turbo_stats, turbo_tables.n_bad
-        frac_bad = n_bad / max(st.rows, 1)
-        bad = (max(st.max_fwd_err, st.max_inv_err) > FIT_TOL
-               or st.max_chord_dev > CHORD_TOL
-               or frac_bad > hybrid_max())
-        table_tbl = None
-        if not bad and n_bad > 0:
-            table_tbl = build_table_tables(fast_tables, self.device)
-            if table_tbl is None:
-                bad = True                    # no exact backing: demote
-            else:
-                print(f"# turbo hybrid: {n_bad} of {st.rows} rows failed "
-                      f"the per-row fit gate (pass rate "
-                      f"{1 - frac_bad:.2%}); tainted lanes re-evaluate "
-                      "through the table kernel")
-        if bad and self.ctl.kernel == "turbo":
-            raise ValueError(
-                "KERNEL = turbo: Chebyshev fit validation failed "
-                f"({st}, bad rows {n_bad}); these tables need KERNEL = "
-                "pallas")
-        if bad:
+        if turbo_fit_rejected(st, n_bad):
+            fused_kernel(self.ctl.kernel, fast_tables,
+                         f"{st}, bad rows {n_bad}")
             return
+        table_tbl = None
+        if n_bad > 0:
+            table_tbl = build_table_tables(fast_tables, self.device)
+            print(f"# turbo hybrid: {n_bad} of {st.rows} rows failed "
+                  f"the per-row fit gate (pass rate "
+                  f"{1 - n_bad / max(st.rows, 1):.2%}); tainted lanes "
+                  "re-evaluate through the table kernel")
         self.turbo_tbl = turbo_tables.to(self.device)
         self.turbo_stats = turbo_stats
         self.table_tbl = table_tbl
 
-    def _turbo_tables_cached(self, fast_tables: FastTables, directory):
-        """build_turbo_tables behind a file beside the table cache for
-        file-backed tables (forward.py:469-515), under READ_BINARY /
-        WRITE_BINARY, keyed like the table cache (configuration and table
-        file freshness).  The file is the port's own
-        (``jurassic_torch_tables_<hash>_turbo.npz``) and holds the logical
-        coefficient rows."""
-        ctl = self.ctl
-        cf = None
-        if self.tables is not None and ctl.tblbase != "-":
-            base = cache_filename(ctl, directory)
-            cf = base.with_name(f"{base.stem}_turbo.npz")
-        if cf is not None and ctl.read_binary and cf.exists():
-            return load_turbo_tables(cf)
-        tt, stats = build_turbo_tables(fast_tables)
-        if tt is None:
-            return None, None
-        print(f"# turbo tables: {stats.rows} rows fitted, max fwd err "
-              f"{stats.max_fwd_err:.2e}, inv roundtrip "
-              f"{stats.max_inv_err:.2e}, chord dev "
-              f"{stats.max_chord_dev:.2e}, "
-              f"{tt.coef.numel() * 4 / 1e6:.1f} MByte on the device")
-        if cf is not None and ctl.write_binary:
-            save_turbo_tables(cf, tt, stats)
-        return tt, stats
-
-    def channel_model(self, ctl_b: Ctl) -> "ForwardModel":
-        """The model of ``ctl_b``, a copy of this model's ctl cut to its
-        first ``ctl_b.nd`` channels, on this model's tables cut the same
-        way: no table is read and no turbo fit runs (rows are fitted per
-        channel, ``turbo_fit.slice_turbo_tables``).  A demoted ``auto``
-        stays demoted."""
+    def channel_model(self, ctl_b: Ctl, d0: int = 0) -> "ForwardModel":
+        """The model of ``ctl_b``, a copy of this model's ctl cut to the
+        ``ctl_b.nd`` channels from ``d0`` on (:func:`channel_ctl`), on this
+        model's tables cut the same way: no table is read and no turbo fit
+        runs (rows are fitted per channel, ``turbo_fit.
+        slice_turbo_tables``).  A demoted ``auto`` stays demoted."""
         nd = ctl_b.nd
         tables = None if self.tables is None else channel_slice(
-            self.tables, nd)
-        ft = channel_slice(self.fast_tables, nd) \
+            self.tables, nd, d0)
+        ft = channel_slice(self.fast_tables, nd, d0) \
             if self.fast_tables is not None else None
         tt = st = None
         if self.turbo_tbl is not None:
-            tt, st = slice_turbo_tables(self.turbo_tbl, self.turbo_stats, nd)
+            tt, st = slice_turbo_tables(self.turbo_tbl, self.turbo_stats, nd,
+                                        d0)
         elif ctl_b.kernel == "auto":
             ctl_b = dataclasses.replace(ctl_b, kernel=(
                 "pallas" if self.kernel_mode == "fused" else "jax"))
@@ -473,40 +542,56 @@ class ForwardModel:
 
     # -- sizing of ray packages (forward.py:517-626) ------------------------
 
-    def _ray_bytes(self, mode: str | None = None) -> tuple[int, int]:
-        """(in flight, kept) device bytes per ray of one package: the
-        peak while a package is traced and integrated, and what it keeps
-        until the one pull at the end of the package loop, for the
+    def ray_terms(self, mode: str | None = None) -> dict:
+        """Device bytes per ray of one package, term by term, for the
         ``mode`` ("fused", "fast" or "exact"; default the model's
-        ``kernel_mode``).  In flight:
-        the LOS (``LosData``), the tracer's per-step outputs and their
-        stacked copy, and then either the segment stream [S, F] f32 and
-        the kernels' outputs, or the eager pass's per-step temporaries
-        -- the bracketing rows and masks, and in exact mode the u and
-        eps rows of one corner, [G, D, U] in f32 and in the model's
-        dtype, with the searches' masks.  Kept: the outputs, and the LOS
-        where a hybrid re-run may need it.  Tables are resident and not
-        counted."""
+        ``kernel_mode``).  Each term is a pair (float bytes that a
+        tangent accompanies under ``jacfwd``, bytes no tangent reaches:
+        integer indices, masks and table rows):
+
+        * ``los``: the LOS (``LosData``);
+        * ``trace``: the tracer's per-step outputs and their stacked copy;
+        * ``step``: the segment stream [S, F] f32 and the kernels'
+          outputs, or the eager pass's per-step temporaries -- the
+          bracketing rows and masks, the corner-batched values (12 in the
+          model's dtype) and table values, indices and masks (12 of at
+          most 8 bytes) of the fast search [G, 4, D], and in exact mode
+          the u and eps rows of one corner, [G, D, U] in f32 and in the
+          model's dtype, with the searches' masks;
+        * ``out``: the outputs and their float64 host copies;
+        * ``kept``: what a package keeps to the pull, the outputs and the
+          LOS where a hybrid re-run may need it.
+
+        Tables are resident and not counted."""
         ctl = self.ctl
         mode = self.kernel_mode if mode is None else mode
         S, G, W, D = ctl.nlos, ctl.ng, ctl.nw, ctl.nd
         b = torch.empty((), dtype=self.dtype).element_size()
-        los = S * ((6 + 2 * G + W) * b + 1)
-        trace = S * ((2 * (8 + G + W) + 2 * G + 3) * b + 2)
+        los = (S * (6 + 2 * G + W) * b, S)
+        trace = (S * (2 * (8 + G + W) + 2 * G + 3) * b, 2 * S)
         if mode == "fused":
-            step = 2 * S * (N_SEG + W + G) * 4 + 12 * D * 4
+            step = (2 * S * (N_SEG + W + G) * 4 + 12 * D * 4, 0)
         else:
-            # the bracketing rows [G, D, T] and masks [G, D, P or T], the
-            # corner-batched values and indices [G, 4, D] of the fast
-            # search, or the exact rows
             tbl = self.eager_tables().tbl
             P, T = tbl.p.shape[-1], tbl.t.shape[-1]
-            step = G * D * (2 * T * b + 3 * max(P, T) + 24 * 4 * 8 + 10 * b)
+            step = (G * D * (12 * 4 * b + 10 * b),
+                    G * D * (2 * T * b + 3 * max(P, T) + 12 * 4 * 8))
             if mode == "exact":
-                step += G * D * tbl.u.shape[-1] * (2 * (4 + b) + 3)
-        out = 2 * (3 * D + 3) * 8 + 4 * D * 8
-        kept = 4 * D * 4 + (los if self._hybrid() else 0)
-        return max(trace, los + step) + out, kept
+                step = (step[0], step[1]
+                        + G * D * tbl.u.shape[-1] * (2 * (4 + b) + 3))
+        out = (2 * (3 * D + 3) * 8 + 4 * D * 8, 0)
+        kept = (4 * D * 4 + (los[0] if self._hybrid() else 0),
+                los[1] if self._hybrid() else 0)
+        return {"los": los, "trace": trace, "step": step, "out": out,
+                "kept": kept}
+
+    def _ray_bytes(self, mode: str | None = None) -> tuple[int, int]:
+        """(in flight, kept) device bytes per ray of one package: the
+        peak while a package is traced and integrated, and what it keeps
+        until the one pull at the end of the package loop
+        (:meth:`ray_terms`)."""
+        t = {k: sum(v) for k, v in self.ray_terms(mode).items()}
+        return max(t["trace"], t["los"] + t["step"]) + t["out"], t["kept"]
 
     def per_ray_device_bytes(self) -> int:
         """Device bytes per ray of a one-package formod, tables
@@ -645,7 +730,9 @@ class ForwardModel:
         row (None when the tables have none)."""
         if self.kernel_mode != "fused":
             self.last_variant = self.kernel_mode
-            return self.integrate_eager(los), None
+            out = self.integrate_eager(los)
+            self._mark("eager pass")
+            return out, None
         args = (self.cc_rows, los, self.flags, self.ig_co2, self.ig_h2o)
         if self.turbo_tbl is None:
             rad, tau = rt_fused_table(self.table_tbl, *args)
@@ -653,7 +740,10 @@ class ForwardModel:
         else:
             rad, tau, taint = rt_fused_turbo(self.turbo_tbl, *args)
             self.last_variant = "turbo"
-        return self._epilogue(rad, tau, los), taint
+        self._mark("kernel")
+        out = self._epilogue(rad, tau, los)
+        self._mark("epilogue")
+        return out, taint
 
     def integrate_eager(self, los: LosData) -> RtOut:
         """The eager pipeline on ``los`` with :meth:`eager_tables`,
@@ -709,18 +799,39 @@ class ForwardModel:
             print(f"# formod: checkmode = {ctl.checkmode}, "
                   "no actual computation is performed!")
             return obs
+        clock = self._clock = (PhaseClock(self.device)
+                               if self.phase_log is not None else None)
         mask = ~np.isfinite(obs.rad)                  # save_mask
-        if ctl.ip == 1:
-            hydrostatic_atm(ctl, atm)                 # once, up front
+        self.formod_rays(atm, obs)
+        formod_fov(ctl, obs)
+        obs.rad[mask] = np.nan                        # apply_mask
+        if clock is not None:
+            clock.mark("FOV + mask")
+            self.phase_log.append(clock.split())
+            self._clock = None
+        return obs
+
+    def formod_rays(self, atm: Atm, obs: Obs) -> None:
+        """The part of :meth:`formod` that works ray by ray: fills
+        obs.rad/obs.tau [R, ND] and the tangent points in place, before
+        the FOV convolution and the mask.  ``IP = 1`` runs hydrostatics
+        once, then the ray packages of ``RAYPACK``; ``IP = 2/3`` the
+        pencil path on the whole batch."""
+        if self.ctl.ip == 1:
+            hydrostatic_atm(self.ctl, atm)            # once, up front
+            self._mark("hydrostatics")
             pack = self.package_size(obs.nr)
             self._run_packages(obs, pack or obs.nr,
                                lambda o: self.trace(atm, o, hydro=False))
         else:
             self._run_packages(obs, obs.nr,
                                lambda o: self.pencil_trace(atm, o))
-        formod_fov(ctl, obs)
-        obs.rad[mask] = np.nan                        # apply_mask
-        return obs
+
+    def _mark(self, name: str) -> None:
+        """A phase boundary of the running formod's :class:`PhaseClock`
+        (none unless ``phase_log`` is set)."""
+        if self._clock is not None:
+            self._clock.mark(name)
 
     def _stream_ctx(self, k: int):
         """Package k's CUDA stream context (two streams in turns); a
@@ -746,6 +857,7 @@ class ForwardModel:
             obs_k = obs if pack >= R else _obs_rows(obs, rows)
             with self._stream_ctx(k):
                 los = trace(obs_k)
+                self._mark("trace")
                 out, taint = self._integrate_deferred(los)
             pull = (out.rad, out.tau, los.tpz, los.tplon, los.tplat)
             if taint is None:
@@ -758,8 +870,9 @@ class ForwardModel:
             for s in self._streams:
                 cur.wait_stream(s)
         host = self.outputs_to_host_many([p.pull for p in pkgs])
-        fields = [np.empty((R, obs.rad.shape[1])),
-                  np.empty((R, obs.rad.shape[1])),
+        self._mark("D2H")
+        D = self.ctl.nd
+        fields = [np.empty((R, D)), np.empty((R, D)),
                   np.empty(R), np.empty(R), np.empty(R)]
         for p, h in zip(pkgs, host):
             if p.los is not None:
@@ -772,9 +885,11 @@ class ForwardModel:
                     print(f"# turbo hybrid: {int(taint.sum())} of "
                           f"{taint.size} lanes re-evaluated through the "
                           "table kernel")
+                    self._mark("hybrid re-run + D2H")
             for dst, a in zip(fields, h):
                 dst[p.rows] = a
         obs.rad, obs.tau, obs.tpz, obs.tplon, obs.tplat = fields
+        self._mark("host")
 
     @staticmethod
     def outputs_to_host(arrays) -> tuple[np.ndarray, ...]:

@@ -55,6 +55,10 @@ KERNEL_MAX_GASES = 32
 
 LAUNCHES = 0        # launches of the turbo CUDA kernel (rt_fused_turbo)
 LAUNCHES_TABLE = 0  # launches of the table CUDA kernel (rt_fused_table)
+# None, or a list to which every launch appends (entry point, start, end):
+# CUDA events recorded around it on its stream.  torch.profiler records
+# none of these ctypes launches; the events give their device time.
+LAUNCH_EVENTS: list | None = None
 
 
 def pack_continua(cc, window, nd: int, nw: int = 0,
@@ -150,6 +154,26 @@ def _c01(x):
     return torch.clamp(x, 0.0, 1.0)
 
 
+LANE_PAD = 64       # elements: two of the widest CPU vectors of float64
+
+
+def _lanes(fn, *args):
+    """``fn(*args)`` elementwise, each element on PyTorch's vector path.
+    On the CPU a transcendental rounds its vector body and its scalar
+    tail differently in the last bit, so without this an element's bits
+    would depend on where its batch ends: a ray split or a package
+    boundary would move the last bit of a ray's radiance.  The inputs
+    are broadcast, flattened and padded to a multiple of ``LANE_PAD``;
+    on a card the call is ``fn(*args)``."""
+    if args[0].device.type != "cpu":
+        return fn(*args)
+    xs = torch.broadcast_tensors(*args)
+    shape, n = xs[0].shape, xs[0].numel()
+    pad = -n % LANE_PAD
+    flat = [torch.nn.functional.pad(x.reshape(-1), (0, pad)) for x in xs]
+    return fn(*flat)[:n].reshape(shape)
+
+
 def _continua_bds(p_s, t_s, ds_s, q_h2o, u_co2, u_h2o, kw, cc, flags):
     """Continuum optical depth of one segment (``_continua_bds``,
     ega_fused.py:725-760): gray extinction ``kw`` plus the enabled
@@ -166,8 +190,9 @@ def _continua_bds(p_s, t_s, ds_s, q_h2o, u_co2, u_h2o, kw, cc, flags):
         cw296, cw260 = cc[3], cc[4]
         base = torch.where(cw296 > 0, cw260
                            / torch.where(cw296 > 0, cw296, 1.0), 1.0)
-        ctwslf = cc[6] * cw296 * torch.pow(base, (296.0 - t_s) / 36.0)
-        a1 = cc[7] * u_h2o * torch.tanh(0.7193876 / t_s * cc[7])
+        ctwslf = cc[6] * cw296 * _lanes(torch.pow, base,
+                                        (296.0 - t_s) / 36.0)
+        a1 = cc[7] * u_h2o * _lanes(torch.tanh, 0.7193876 / t_s * cc[7])
         a3 = p_s / float(np.float32(P0)) * (q_h2o * ctwslf
                                             + (1 - q_h2o) * cc[5]) \
             * float(np.float32(1e-20))
@@ -178,10 +203,10 @@ def _continua_bds(p_s, t_s, ds_s, q_h2o, u_co2, u_h2o, kw, cc, flags):
         tfac = 1.0 / 296.0 - 1.0 / t_s
         if f_n2:
             mix = 0.79 + 0.21 * (1.294 - 0.4545 * t_s / 296.0)
-            bds = bds + ds_s * (0.1 * pp2 * torch.exp(cc[9] * tfac)
+            bds = bds + ds_s * (0.1 * pp2 * _lanes(torch.exp, cc[9] * tfac)
                                 * 0.79 * cc[8] * mix)
         if f_o2:
-            bds = bds + ds_s * (0.1 * pp2 * torch.exp(cc[11] * tfac)
+            bds = bds + ds_s * (0.1 * pp2 * _lanes(torch.exp, cc[11] * tfac)
                                 * 0.21 * cc[10])
     return bds
 
@@ -191,8 +216,8 @@ def _eta_of(target):
     (``_eta_of``, ega_fused.py:763-772): the plain log forms with the
     same clips, not log1p."""
     t_c = torch.clamp(target, 1e-12, 1.0 - 1e-7)
-    return torch.log(torch.clamp(
-        -torch.log(torch.clamp(1.0 - t_c, min=1e-37)), min=1e-37))
+    return _lanes(torch.log, torch.clamp(
+        -_lanes(torch.log, torch.clamp(1.0 - t_c, min=1e-37)), min=1e-37))
 
 
 def _turbo_corner(get_row, J_f, J_i, target, eta_t, u_seg):
@@ -230,15 +255,15 @@ def _turbo_corner(get_row, J_f, J_i, target, eta_t, u_seg):
     u_n2 = u_n1 * float(np.float32(2.0 ** -LOG2_RATIO_U))
     xi = torch.clamp(eta_t * xi_a + xi_b, -1.0, 1.0)
     k_c = torch.minimum(torch.clamp(cheb(J_f, J_i, xi), min=0.0), k_hi)
-    u_c = torch.exp2(l2u0 + k_c * R6)
+    u_c = _lanes(torch.exp2, l2u0 + k_c * R6)
     u_c = torch.where(target < e0, u0 + (target - e0) * s_lo_inv, u_c)
     hi_u = u_n2 + (target - e2nd) * s_hi_inv
     u_c = torch.where((target > emax) & (ends > 0), hi_u, u_c)
     u_new = u_c + u_seg
-    k_new = (torch.log2(torch.clamp(u_new, min=1e-37)) - l2u0) / R6
+    k_new = (_lanes(torch.log2, torch.clamp(u_new, min=1e-37)) - l2u0) / R6
     k_cl = torch.minimum(torch.clamp(k_new, min=0.0), k_hi)
     y = torch.clamp(k_cl * ky - 1.0, -1.0, 1.0)
-    eps = 1.0 - torch.exp(-torch.exp(cheb(0, J_f, y)))
+    eps = 1.0 - _lanes(torch.exp, -_lanes(torch.exp, cheb(0, J_f, y)))
     eps = torch.where(k_new < 0.0, e0 + (u_new - u0) * s_lo_fwd, eps)
     eps = torch.where(k_new > k_hi, emax + (u_new - u_n1) * s_hi_fwd, eps)
     eps = torch.where(torch.abs(emax - e0) > 1e-10, eps, e0)
@@ -283,14 +308,14 @@ def _row_lookup(row, l2u0, nk2, target, u_seg):
     cnt = (row <= target.unsqueeze(-2)).sum(dim=-2)
     i = torch.minimum((cnt - 1).clamp_min(0), nk2)
     e0, e1 = bracket(i)
-    u0 = torch.exp2(l2u0 + i.to(torch.float32) * R6)
+    u0 = _lanes(torch.exp2, l2u0 + i.to(torch.float32) * R6)
     u_c = _lipg(e0, u0, e1, u0 * RATIO, target)
     u_new = u_c + u_seg
-    kf = (torch.log2(torch.clamp(u_new, min=1e-37)) - l2u0) / R6
+    kf = (_lanes(torch.log2, torch.clamp(u_new, min=1e-37)) - l2u0) / R6
     kf = torch.clamp(kf, 0.0, float(K))
     ki = torch.minimum(kf.to(torch.int64), nk2)
     e_lo, e_hi = bracket(ki)
-    u_lo = torch.exp2(l2u0 + ki.to(torch.float32) * R6)
+    u_lo = _lanes(torch.exp2, l2u0 + ki.to(torch.float32) * R6)
     return _c01(_lipg(u_lo, e_lo, u_lo * RATIO, e_hi, u_new))
 
 
@@ -383,7 +408,7 @@ def _rt_fused_ref(packed, n_rows, rows_tpv, corner, axes, sr, chan_mask,
                 taint = taint | hit.any(dim=1)
 
             src = _source_rows(sr, f[:, 2])
-            eps_tot = 1.0 - tau_gas * torch.exp(-bds)
+            eps_tot = 1.0 - tau_gas * _lanes(torch.exp, -bds)
             upd = valid_s & (tau_gas > 0.0)
             rad = torch.where(upd, rad + src * eps_tot * tau, rad)
             tau = torch.where(upd, tau * (1.0 - eps_tot), tau)
@@ -574,14 +599,21 @@ def _launch(entry: str, packed, n_rows: int, tables, cc_rows, los: LosData,
     bits = sum(int(bool(f)) << i for i, f in enumerate(flags))
     lib = load_library()
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+    events = LAUNCH_EVENTS
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
+        if events is not None:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record(stream)
         rc = getattr(lib, entry)(
             ptr(seg), ptr(np_), ptr(packed), ptr(tables.sr),
             ptr(tables.chan_mask), ptr(cc_rows), ptr(p_ax), ptr(t_ax),
             ptr(np_u), ptr(nt_u), ptr(rad), ptr(tau), ptr(taint),
             R, S, F, W, G, P, T, D, n_src, bits, *extra,
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(stream.cuda_stream))
+        if events is not None:
+            ev[1].record(stream)
+            events.append((entry, *ev))
     if rc != 0:
         raise RuntimeError(f"{entry}: kernel launch failed (cudaError {rc})")
     return rad, tau, taint, 1

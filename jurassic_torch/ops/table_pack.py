@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from ..tables import FastTables
-from .turbo_fit import pack_rows, pad_small_axes, uniform_axes, unpack_rows
+from .turbo_fit import (pack_rows, pad_small_axes, uniform_axes,
+                        unpack_rows, unshard_lanes)
 
 BIG = 1.0e30        # eps-row padding sentinel
 N_AUG = 5           # rows appended to the K eps rows
@@ -170,24 +171,24 @@ def build_table_tables(ft: FastTables, device="cpu") -> TableTables | None:
 
 def table_tables_from_jax(eps_aug, sr, chan_mask, p_ax, t_ax, np_u, nt_u,
                           *, k_rows: int, d_true: int, n_chan: int = 1,
+                          shard: int | None = None,
                           device="cpu") -> TableTables:
     """The port's container from the fields of a JAX table-mode
     ``PallasTables`` given as NumPy arrays: strips the 128-lane channel
-    padding and the 8-row padding of the row axis."""
-    if n_chan != 1:
-        raise NotImplementedError("channel-sharded tables (n_chan > 1) are "
-                                  "a multi-GPU item (ROADMAP.md)")
-    K, D = int(k_rows), int(d_true)
+    padding of each of the ``n_chan`` channel shards (``d_true`` true
+    channels each, ``turbo_fit.unshard_lanes``) and the 8-row padding of
+    the row axis.  All ``n_chan * d_true`` channels, or the channel range
+    of shard ``shard``."""
+    K = int(k_rows)
     aug = np.asarray(eps_aug, np.float32)
-    if aug.ndim != 4 or aug.shape[2] < K + N_AUG or aug.shape[3] < D:
+    if aug.ndim != 4 or aug.shape[2] < K + N_AUG:
         raise ValueError(f"eps_aug shape {aug.shape} does not hold "
-                         f"{K + N_AUG} rows x {D} channels")
-    aug = aug[:, :, :K + N_AUG, :D]
+                         f"{K + N_AUG} rows")
+    lanes = lambda a: unshard_lanes(a, n_chan, int(d_true), shard)
+    aug = lanes(aug[:, :, :K + N_AUG, :])
     tt = TableTables(
-        eps_aug=pack_rows(aug),
-        sr=np.ascontiguousarray(np.asarray(sr, np.float32)[:, :D]),
-        chan_mask=np.ascontiguousarray(
-            np.asarray(chan_mask, np.float32)[:, :D]),
+        eps_aug=pack_rows(aug), sr=lanes(np.asarray(sr, np.float32)),
+        chan_mask=lanes(np.asarray(chan_mask, np.float32)),
         p_ax=np.asarray(p_ax, np.float64), t_ax=np.asarray(t_ax, np.float64),
         np_u=np.asarray(np_u, np.int32), nt_u=np.asarray(nt_u, np.int32),
         k_rows=K, monotone=rows_monotone(aug, K))

@@ -36,6 +36,7 @@ one channel in one ``float4``.  That is the only copy kept;
 from __future__ import annotations
 
 import hashlib
+import os
 from pathlib import Path
 from typing import NamedTuple
 
@@ -48,6 +49,7 @@ N_TURBO_AUX = 21   # 14 base rows + 7 precomputed-slope rows (A+14..20)
 DEG = 8            # Chebyshev degree of the forward and inverse fits
 FIT_TOL = 2e-3     # per-row fit and roundtrip error gate
 CHORD_TOL = 3e-3   # per-row gate on the gap to the linear-in-u chords
+JAX_LANE = 128     # the JAX tables pad each channel shard to this multiple
 
 
 def pack_rows(rows):
@@ -461,11 +463,12 @@ _CACHE_KEYS = ("coef", "sr", "chan_mask", "p_ax", "t_ax", "np_u", "nt_u")
 
 def save_turbo_tables(cf, tt: TurboTables, stats: TurboStats) -> None:
     """Write fitted tables to the ``.npz`` file ``cf`` (through a
-    temporary name, so a reader never sees half a file).  The file holds
+    temporary name of this process's own, so a reader never sees half a
+    file, also where several ranks write the same fit).  The file holds
     the logical rows, whatever layout the kernels read."""
     cf = Path(cf)
     cf.parent.mkdir(parents=True, exist_ok=True)
-    tmp = cf.with_suffix(".tmp.npz")
+    tmp = cf.with_suffix(f".{os.getpid()}.tmp.npz")
     host = tt.to("cpu")
     np.savez(tmp, coef=host.rows().numpy(),
              **{k: getattr(host, k).numpy() for k in _CACHE_KEYS[1:]},
@@ -504,43 +507,70 @@ def build_turbo_tables_cached(ft: FastTables, cache_dir, device="cpu"):
     return tt.to(device), stats
 
 
-def slice_turbo_tables(tt: TurboTables, stats: TurboStats, nd: int):
-    """(tables, stats) of the first ``nd`` channels of fitted tables.
-    Every row is fitted on its own, so the slice holds the rows a fit of
-    the sliced FastTables gives (``tests/test_torch_cli_all.py`` holds
-    them byte-equal); ``rows`` and ``n_bad`` are counted in the slice,
-    the three error maxima stay those of all channels (bounds of the
-    slice's, so the acceptance gate decides as before or stricter)."""
-    coef = tt.coef[:, :, :, :nd].contiguous()
+def slice_turbo_tables(tt: TurboTables, stats: TurboStats, nd: int,
+                       d0: int = 0):
+    """(tables, stats) of the ``nd`` channels from ``d0`` on of fitted
+    tables.  Every row is fitted on its own, so the slice holds the rows a
+    fit of the sliced FastTables gives (``tests/test_torch_cli_all.py``
+    holds them byte-equal); ``rows`` and ``n_bad`` are counted in the
+    slice, the three error maxima stay those of all channels (bounds of
+    the slice's, so the acceptance gate decides as before or stricter)."""
+    cut = slice(d0, d0 + nd)
+    coef = tt.coef[:, :, :, cut].contiguous()
     valid = unpack_rows(coef, tt.q_rows)[:, :, tt.deg_f + tt.deg_i + 2 + 11]
-    sl = tt._replace(coef=coef, sr=tt.sr[:, :nd].contiguous(),
-                     chan_mask=tt.chan_mask[:, :nd].contiguous(),
+    sl = tt._replace(coef=coef, sr=tt.sr[:, cut].contiguous(),
+                     chan_mask=tt.chan_mask[:, cut].contiguous(),
                      n_bad=int((valid > 1.5).sum()))
     return sl, stats._replace(rows=int((valid > 0.5).sum()))
+
+
+def unshard_lanes(x, n_chan: int, d_true: int, shard: int | None = None):
+    """The channels of a JAX lane axis (the last): ``n_chan`` back-to-back
+    shards of ``x.shape[-1] / n_chan`` lanes, each holding ``d_true``
+    true channels and then padding (``shard_lanes``,
+    ``jurassic_tpu/ops/pallas/ega_fused.py:133-146``; at ``n_chan = 1``
+    one shard).  Returns all ``n_chan * d_true`` channels in order, or
+    shard ``shard``'s ``d_true``."""
+    x = np.asarray(x)
+    L = x.shape[-1]
+    if (n_chan < 1 or L % n_chan or (L // n_chan) % JAX_LANE
+            or not 0 <= d_true <= L // n_chan):
+        raise ValueError(f"a lane axis of {L} does not hold {n_chan} "
+                         f"shards of {d_true} channels, each padded to a "
+                         f"multiple of {JAX_LANE} lanes")
+    Dp = L // n_chan
+    shards = range(n_chan) if shard is None else (shard,)
+    if not all(0 <= j < n_chan for j in shards):
+        raise ValueError(f"shard {shard} outside [0, {n_chan})")
+    return np.ascontiguousarray(np.concatenate(
+        [x[..., j * Dp:j * Dp + d_true] for j in shards], axis=-1))
 
 
 def turbo_tables_from_jax(eps_aug, sr, chan_mask, p_ax, t_ax, np_u, nt_u,
                           *, d_true: int, deg_f: int, deg_i: int,
                           n_bad: int = 0, n_chan: int = 1,
+                          shard: int | None = None,
                           device="cpu") -> TurboTables:
     """The port's container from the fields of a JAX turbo
     ``PallasTables`` given as NumPy arrays: strips the 128-lane channel
-    padding and the 8-row padding of the coefficient axis.  This carries
-    tables fitted by the JAX package across to the port unchanged."""
-    if n_chan != 1:
-        raise NotImplementedError("channel-sharded tables (n_chan > 1) are "
-                                  "a multi-GPU item (ROADMAP.md)")
+    padding of each of the ``n_chan`` channel shards (``d_true`` true
+    channels each, :func:`unshard_lanes`) and the 8-row padding of the
+    coefficient axis.  This carries tables fitted by the JAX package
+    across to the port unchanged: all ``n_chan * d_true`` channels, or
+    the channel range of shard ``shard`` (one rank's tables of a
+    channel-sharded model; ``n_bad`` is then counted in the range)."""
     Q = deg_f + 1 + deg_i + 1 + N_TURBO_AUX
-    D = int(d_true)
     coef = np.asarray(eps_aug, np.float32)
-    if coef.ndim != 4 or coef.shape[2] < Q or coef.shape[3] < D:
+    if coef.ndim != 4 or coef.shape[2] < Q:
         raise ValueError(f"eps_aug shape {coef.shape} does not hold "
-                         f"{Q} rows x {D} channels")
+                         f"{Q} rows")
+    lanes = lambda a: unshard_lanes(a, n_chan, int(d_true), shard)
+    rows = lanes(coef[:, :, :Q, :])
+    if shard is not None:
+        n_bad = int((rows[:, :, deg_f + deg_i + 2 + 11] > 1.5).sum())
     tt = TurboTables(
-        coef=pack_rows(coef[:, :, :Q, :D]),
-        sr=np.ascontiguousarray(np.asarray(sr, np.float32)[:, :D]),
-        chan_mask=np.ascontiguousarray(
-            np.asarray(chan_mask, np.float32)[:, :D]),
+        coef=pack_rows(rows), sr=lanes(np.asarray(sr, np.float32)),
+        chan_mask=lanes(np.asarray(chan_mask, np.float32)),
         p_ax=np.asarray(p_ax, np.float64), t_ax=np.asarray(t_ax, np.float64),
         np_u=np.asarray(np_u, np.int32), nt_u=np.asarray(nt_u, np.int32),
         deg_f=int(deg_f), deg_i=int(deg_i), n_bad=int(n_bad))

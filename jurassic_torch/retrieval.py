@@ -166,12 +166,16 @@ def kernel(ctl: Ctl, atm: Atm, obs: Obs,
 def autodiff_ray_bytes(model: "ForwardModel", n: int) -> int:
     """Device bytes per ray of one ``kernel_autodiff`` package for an
     n-element state: the eager pass's in-flight bytes per ray
-    (``ForwardModel._ray_bytes`` in the eager mode the autodiff runs)
-    times 1 + n, a primal and n tangents of every tensor.  Tangents
-    never reach the integer indices, masks and table rows among those
-    bytes, so this bounds the pass from above."""
+    (``ForwardModel.ray_terms`` in the eager mode the autodiff runs),
+    where the float tensors that carry tangents count 1 + n times, a
+    primal and n tangents, and the integer indices, masks and table rows,
+    which no tangent reaches, once."""
     mode = "fast" if model.eager_tables().use_fast else "exact"
-    return model._ray_bytes(mode)[0] * (1 + n)
+    t = model.ray_terms(mode)
+
+    def bytes_(*terms):
+        return sum(t[k][0] * (1 + n) + t[k][1] for k in terms)
+    return max(bytes_("trace"), bytes_("los", "step")) + bytes_("out")
 
 
 def autodiff_package_size(model: "ForwardModel", nr: int, n: int) -> int:
@@ -233,8 +237,8 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
     A ray's rows depend only on its own profile and geometry, so the
     Jacobian runs ray package by ray package (:func:`autodiff_package_
     size`; one line names the packages) and stacks their rows: the same
-    bits as one package.  The tangents multiply the eager pass's memory
-    by up to 1 + n."""
+    bits as one package.  The tangents multiply the eager pass's float
+    memory by up to 1 + n."""
     import torch
 
     from .forward import ForwardModel, _obs_rows

@@ -23,6 +23,7 @@ grid, so all in-kernel searches collapse to index arithmetic.
 from __future__ import annotations
 
 import hashlib
+import os
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -340,7 +341,12 @@ def load_tables_cached(ctl: Ctl, directory: str | Path = ".",
             f"READ_BINARY > 0 but no cache file {cf}")
     tbl = load_tables(ctl, directory, verbose)
     if ctl.write_binary:
-        np.savez(cf, **tbl._asdict())
+        # through a name of this process's own: the ranks of a sharded
+        # model load the same tables side by side, and a reader must
+        # never see half a file
+        tmp = cf.with_suffix(f".{os.getpid()}.tmp.npz")
+        np.savez(tmp, **tbl._asdict())
+        tmp.replace(cf)
         if verbose:
             print(f"wrote binary tables cache: {cf}")
     return tbl

@@ -17,9 +17,10 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_import_leaves_jax_out():
-    """Importing every module of the port (and building a workload)
-    loads no jax* and no jurassic_tpu* module.  In a subprocess: this
-    process already holds both."""
+    """Importing every module of the port, the multi-GPU driver
+    ``jurassic_torch.parallel`` included (and building a workload), loads
+    no jax* and no jurassic_tpu* module.  In a subprocess: this process
+    already holds both."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "jurassic_torch").rglob("*.py")
@@ -27,6 +28,9 @@ def test_port_import_leaves_jax_out():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
     assert "jurassic_torch.tools.peak" in mods and len(mods) >= 20
+    assert {"jurassic_torch.parallel", "jurassic_torch.parallel.mesh",
+            "jurassic_torch.parallel.sharded",
+            "jurassic_torch.parallel.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

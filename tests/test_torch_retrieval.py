@@ -212,14 +212,20 @@ def test_packages_bitwise(setup, capsys):
 
 def test_package_sizing_on_a_card(setup, monkeypatch):
     """RAYPACK = 0 on a card: one package in flight, its eager bytes per
-    ray times 1 + n, fits 90 % of the free memory read on every call; an
-    explicit RAYPACK reads nothing; the CPU is one package."""
+    ray with the tangent-carrying floats times 1 + n, fits 90 % of the
+    free memory read on every call; an explicit RAYPACK reads nothing; the
+    CPU is one package.  Indices, masks and table rows count once: the
+    estimate lies strictly between the eager bytes and 1 + n times
+    them, and with no state element it is the eager bytes."""
     s = setup
     m = ForwardModel(dataclasses.replace(s["ctl_t"]),
                      fast_tables=s["model"].fast_tables, device="cpu")
     n, nr = 10, 1000
     per_ray = tret.autodiff_ray_bytes(m, n)
-    assert per_ray == m._ray_bytes("fast")[0] * (1 + n)
+    eager = m._ray_bytes("fast")[0]
+    assert tret.autodiff_ray_bytes(m, 0) == eager
+    assert eager < per_ray < eager * (1 + n)
+    assert per_ray % eager != 0
     assert tret.autodiff_package_size(m, nr, n) == 0       # the CPU
     m.device = torch.device("cuda", 0)
     card = _FakeCard(monkeypatch, 0)

@@ -116,9 +116,22 @@ def test_non_monotone_rows_are_flagged():
 
 
 def test_from_jax_refuses_channel_shards():
+    """Channel-sharded JAX tables (n_chan = 2) carry across since the
+    multi-GPU slice: they give the channels of the one-shard build.  A
+    layout that is not n_chan lane-padded shards (one shard read as two)
+    is refused."""
     (_c, ft, _a, _o), _ = small_limb_pair(ng=2, nd=4, nr=2)
     pt = build_pallas_tables(ft)
-    with pytest.raises(NotImplementedError, match="n_chan"):
+    with pytest.raises(ValueError, match="shards"):
         table_tables_from_jax(
             *(np.asarray(getattr(pt, f)) for f in FIELDS),
             k_rows=pt.k_rows, d_true=pt.d_true, n_chan=2)
+    pt2 = build_pallas_tables(ft, n_chan=2)
+    one = table_tables_from_jax(*(np.asarray(getattr(pt, f)) for f in FIELDS),
+                                k_rows=pt.k_rows, d_true=pt.d_true)
+    two = table_tables_from_jax(
+        *(np.asarray(getattr(pt2, f)) for f in FIELDS),
+        k_rows=pt2.k_rows, d_true=pt2.d_true, n_chan=2)
+    for f in ("eps_aug", "sr", "chan_mask"):
+        assert np.array_equal(getattr(one, f).numpy(),
+                              getattr(two, f).numpy()), f
