@@ -33,7 +33,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6.  turbo kernel with taint vs plain version -- the flagship tables with
     three mid-atmosphere cells of one gas and one channel roughened by a
     staircase the Chebyshev fit cannot follow (``n_bad = 3``);
-7.  goldens -- ``python -m jurassic_torch.cli.formod ... USEGPU 1`` on the
+7.  tracer kernel vs plain version -- ``csrc/trace_rays.cu`` against
+    ``geometry.trace_rays_ref`` on the same CUDA tensors, in float32 and
+    float64, on the flagship (REFRAC 1) and its pencil geometry (REFRAC 0
+    on the flat dummy profiles), the ``limb``, ``nadir`` (ground hits,
+    one-level windows), ``ega``, ``fov`` and ``gas30`` geometries, and a
+    small limb scan with RAYDZ 0, an observer inside the atmosphere, rays
+    never traced and one-level windows (``workloads.trace_cases``):
+    ``np_`` and ``valid`` identical on every ray, each float field's
+    largest difference and whether it is bit for bit, tangent points
+    within 1e-3 km / deg, no bisection flag; at the flagship the kernel's
+    time (CUDA events, median of 10), the plain version's, the bound, and
+    the turbo pass on the kernel's LOS against the same pass on the plain
+    version's (within 5e-5);
+8.  goldens -- ``python -m jurassic_torch.cli.formod ... USEGPU 1`` on the
     ``ega`` and ``nadir`` goldens against the C oracle's ``rad.tab`` (the
     ``ega`` turbo run with ``BENCH 3``, whose repeat runs must show no
     deviations: the kernels are reproducible run to run): in
@@ -41,25 +54,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``KERNEL pallas`` at the table bar (2e-3), and the float32 tangent
     points within 1e-2 km / 1e-2 degrees, none of them non-finite (the
     tracer's guard of the parabola fit, ``geometry.tangent_point``);
-8.  flagship formod -- ``ForwardModel.formod`` with ``KERNEL = auto``
+9.  flagship formod -- ``ForwardModel.formod`` with ``KERNEL = auto``
     (turbo), ``KERNEL = pallas`` (table) and on the roughened tables
     (``turbo+hybrid``): warm-up, median wall time, rays*channels/s, and
     the phase split of the median call itself (``ForwardModel.phase_log``:
     CUDA events at the boundaries of hydrostatics, trace, kernel(s),
     epilogue, D2H, the hybrid re-run and the host's FOV and mask inside
-    each timed call), whose parts must add up to within 5 % of that
-    call's wall time.  The launch counts are set to 0 just
-    before each path and read just after: one launch of each kernel the
-    path runs per formod call.  The table result must lie within 2e-3 of
+    each timed call, the host's ray profiles under ``profiles``), whose
+    parts must add up to within 5 % of that call's wall time.  The launch
+    counts are set to 0 just before each path and read just after: one
+    launch of each kernel the path runs per formod call, the tracer's
+    included.  The table result must lie within 2e-3 of
     max|rad| of the turbo result (the table-vs-turbo chord) and not
     within 1e-7 of it (which would mean the turbo kernel ran); the hybrid
     result within 2e-3 of the table result on the same tables, and bit
     for bit the table kernel's output on tainted lanes and the turbo
     kernel's on all others; then one profiled formod: device busy time
-    and kernel launches, the fused kernels' time taken from CUDA events
-    recorded around their launches (``ega_fused.LAUNCH_EVENTS``) in the
-    same call, in place of whatever the profiler recorded of them.
-9.  eager oracles -- ``KERNEL = exact`` in float64 on the card on the
+    (the union of the device activities' intervals, so that two streams'
+    overlap counts once) and kernel launches, the profiler's record of
+    every hand-written kernel's launch checked against CUDA events
+    recorded around them (``ega_fused.LAUNCH_EVENTS``) in the same call.
+10. eager oracles -- ``KERNEL = exact`` in float64 on the card on the
     ``limb``, ``nadir``, ``ega``, ``flagship``, ``gas30`` and ``fov``
     goldens at the JAX package's bars (``flagship`` and ``gas30`` with
     their tables made by ``tools/make_synthetic_tables.py``), ``fast`` on
@@ -67,7 +82,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     float64 trace, the eager ``jax`` pipeline in float64 against the
     table kernel on the same LOS cast to float32 (1e-5 of max|rad|, 1e-5
     on tau), each pass's time and device launches;
-10. packages -- the flagship with ``RAYPACK 271`` (4 packages on two CUDA
+11. packages -- the flagship with ``RAYPACK 271`` (4 packages on two CUDA
     streams) under ``KERNEL = auto``, ``pallas`` and the hybrid: bit for
     bit the one-package run, one fused launch per package (the hybrid's
     table launches: one per package that carries taint), medians beside
@@ -75,11 +90,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     sizing (bytes per ray, free memory, rays per package), and the
     estimate against ``torch.cuda.max_memory_allocated()`` of a
     one-package run, which it must not undercut;
-11. pencil -- ``IP = 2`` and ``IP = 3`` at the flagship width (every
+12. pencil -- ``IP = 2`` and ``IP = 3`` at the flagship width (every
     eighth ray) on a three-profile track with identical profiles and
     ``REFRAC 0``, against ``IP = 1`` (2e-3 / 0.1 of max|rad|, the JAX
     test's bars), through the turbo kernel;
-12. retrieval Jacobians -- the flagship with HYDZ 20 (the hydrostatic
+13. retrieval Jacobians -- the flagship with HYDZ 20 (the hydrostatic
     rebuild in the graph): ``kernel_autodiff`` on the 130-element state
     (T and the 4 gases' vmr at the 26 levels of 10-60 km) in float64 and
     float32: wall time, packages, peak memory against the sizing
@@ -97,7 +112,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     float64 autodiff on the card against the CPU on a small case (1e-10
     of max|K|); the packages bit for bit: one package of every fourth ray
     (271) against those rays' rows of the packaged 1084-ray run;
-13. multi-GPU (torch.distributed) -- ``parallel.ShardedForwardModel`` at
+14. multi-GPU (torch.distributed) -- ``parallel.ShardedForwardModel`` at
     the full flagship: on an NCCL group of one process (a 1 x 1 mesh) in
     ``KERNEL = auto`` and ``pallas``, bit for bit plain ``formod``, the
     collective's time and the median beside plain ``formod``'s; then two
@@ -193,6 +208,21 @@ PEAK_HBM_BYTES = 3.35e12
 #     cut, tau_path (13), and for turbo eta_of (8 with its two logs)
 #   per segment: continua (about 60 with pow, tanh, 2 exp, + 2 per
 #     window), source interpolation (8), rad/tau recursion with exp (10)
+# Float operations of the tracer kernel (csrc/trace_rays.cu), counted from
+# the source, a transcendental or compare as one operation:
+#   per step: step length (18), cart2geo (12), escape tests (2), p by eip
+#     (10), t by lin (6), lowest point (4), refraction without its searches
+#     (mid and 3 offset points 4 x 26, n, gradient, ex1: 25), direction
+#     normalisation (9), advance (10), trapezoid (2) -> 202
+#   per level and step: the five interval searches' compare and count (10)
+#   per gas and step: q by lin (6) and u (4); per window and step: k (6)
+#   per ray: view vectors, entry bisection, tangent point: about 1000
+OPS_TRACE_STEP = 202
+OPS_TRACE_LEVEL = 10
+OPS_TRACE_GAS = 10
+OPS_TRACE_WINDOW = 6
+OPS_TRACE_RAY = 1000
+TRACE_TP_TOL = 1e-3      # tangent points, kernel vs plain version, km / deg
 OPS_TURBO_CORNER = 108
 OPS_PER_GAS = {"turbo": 48, "table": 40}
 OPS_PER_SEGMENT = 78
@@ -415,6 +445,121 @@ def run_golden(case: str, kernel: str, bench: int = 0) -> None:
         fail(f"golden {case}: tangent points differ from the C oracle")
 
 
+def trace_bound(torch, prof, los) -> tuple:
+    """(bound_ms, bound_by, bytes, operations) of one tracer launch: every
+    input read once and every output written once over the HBM rate, and
+    the float operations of every step of every ray (all NLOS steps run
+    and are stored) over the FP32 rate (``OPS_TRACE_*``)."""
+    R, L = prof.z.shape
+    G, W = prof.q.shape[1], prof.k.shape[1]
+    S = los.z.shape[1]
+    n_bytes = sum(t.numel() * t.element_size() for t in (*prof[:8], *los)) \
+        + 6 * R * prof.z.element_size() + 4 * R
+    ops = R * S * (OPS_TRACE_STEP + OPS_TRACE_LEVEL * L
+                   + OPS_TRACE_GAS * G + OPS_TRACE_WINDOW * W) \
+        + R * OPS_TRACE_RAY
+    t_b, t_o = n_bytes / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            n_bytes, ops)
+
+
+def trace_phase(torch, fm, dev):
+    """The tracer kernel against ``trace_rays_ref`` on the same CUDA
+    tensors, in float32 and float64, on every case of
+    ``workloads.trace_cases`` (the flagship and its pencil geometry, the
+    goldens' geometries, the branches of a small limb scan):
+    ``np_`` and ``valid`` identical on every ray, each float field's
+    largest difference and whether it is bit for bit, tangent points
+    within TRACE_TP_TOL, no bisection flag; at the flagship (float32) the
+    kernel's time (CUDA events, median of N_KERNEL_RUNS), the plain
+    version's (one run) and the bound, and the turbo pass of ``fm`` on
+    the two LOS (within KERNEL_TOL; bit for bit where the LOS are).
+    Returns (kernel ms, plain ms, bound ms, bound by, max error)."""
+    from jurassic_torch.geometry import (LosData, build_ray_profiles,
+                                         trace_rays_deferred, trace_rays_ref)
+    from jurassic_torch.ops import trace as ktrace
+    from jurassic_torch.workloads import trace_cases
+    geo_keys = ("obsz", "obslon", "obslat", "vpz", "vplon", "vplat")
+    max_err, timing = 0.0, None
+    n_exact = n_fields = 0
+    for name, (ctl, atm, obs) in trace_cases(REPO / "tests"
+                                             / "goldens").items():
+        geo = {k: getattr(obs, k) for k in geo_keys}
+        for dt in (torch.float32, torch.float64):
+            prof = build_ray_profiles(ctl, atm, obs, dt, dev)
+            los, flag = trace_rays_deferred(ctl, prof, geo)
+            ref = trace_rays_ref(ctl, prof, geo)
+            torch.cuda.synchronize()
+            R = los.np_.shape[0]
+            same = ((los.np_ == ref.np_)
+                    & (los.valid == ref.valid).all(dim=1))
+            diffs = {}
+            for f in LosData._fields:
+                a, b = getattr(los, f), getattr(ref, f)
+                if f in ("np_", "valid"):
+                    continue
+                both_nan = torch.isnan(a) & torch.isnan(b)
+                d = torch.where(both_nan, 0.0, (a - b).abs())
+                diffs[f] = (float(d.max()) if d.numel() else 0.0,
+                            bool(torch.equal(a, b) or (
+                                both_nan | (a == b)).all()))
+            n_fields += len(diffs)
+            n_exact += sum(e for _, e in diffs.values())
+            tp = max(diffs[f][0] for f in ("tpz", "tplon", "tplat"))
+            label = f"tracer {name} ({str(dt)[6:]}, {R} rays, NLOS " \
+                f"{ctl.nlos}, REFRAC {ctl.refrac}, short {prof.short})"
+            inexact = {f: v for f, (v, e) in diffs.items() if not e}
+            print(f"{label}: np_ and valid identical on {int(same.sum())} "
+                  f"of {R} rays; bit for bit in "
+                  f"{len(diffs) - len(inexact)} of {len(diffs)} float "
+                  f"fields" + ("; largest differences " + ", ".join(
+                      f"{f} {v:.3e}" for f, v in inexact.items())
+                      if inexact else ""), flush=True)
+            if int(same.sum()) != R or int(flag.sum()) != 0:
+                fail(f"{label}: np_/valid differ or a bisection flag is "
+                     "set")
+            if not tp <= TRACE_TP_TOL:
+                fail(f"{label}: tangent points differ by {tp:.3e}")
+            scaled = [v / max(float(getattr(ref, f).abs().nan_to_num()
+                                    .max()), 1e-30)
+                      for f, v in inexact.items()]
+            max_err = max([max_err, *scaled])
+            if name == "flagship" and dt == torch.float32:
+                args = (prof, geo, ctl.rayds, ctl.raydz, ctl.refrac,
+                        ctl.nlos)
+                k_ms = cuda_ms(torch, lambda: ktrace.trace_rays_cuda(*args),
+                               N_KERNEL_RUNS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trace_rays_ref(ctl, prof, geo)
+                torch.cuda.synchronize()
+                p_ms = (time.perf_counter() - t0) * 1e3
+                b_ms, b_by, n_bytes, ops = trace_bound(torch, prof, los)
+                print(f"tracer flagship: kernel {k_ms:.3f} ms (median of "
+                      f"{N_KERNEL_RUNS}, the wrapper with its allocation "
+                      f"and geometry copy), plain version {p_ms:.1f} ms "
+                      f"(one run); bound {b_ms:.4f} ms by {b_by}: "
+                      f"{n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP",
+                      flush=True)
+                timing = (k_ms, p_ms, b_ms, b_by)
+                out_k = fm.integrate(los)
+                out_r = fm.integrate(ref)
+                e_rad = float((out_k.rad - out_r.rad).abs().max()
+                              / out_r.rad.abs().max())
+                e_tau = float((out_k.tau - out_r.tau).abs().max())
+                print(f"flagship turbo pass on the kernel's LOS vs on the "
+                      f"plain version's: rad {e_rad:.3e} of max|rad|, tau "
+                      f"{e_tau:.3e} (bar {KERNEL_TOL}); bit for bit "
+                      f"{torch.equal(out_k.rad, out_r.rad)}", flush=True)
+                if not (e_rad <= KERNEL_TOL and e_tau <= KERNEL_TOL):
+                    fail("the tracer kernel's LOS moves the flagship "
+                         "radiances beyond KERNEL_TOL")
+    print(f"tracer kernel vs plain version: {n_exact} of {n_fields} float "
+          f"fields bit for bit over all cases; largest difference "
+          f"{max_err:.3e} of its field's max", flush=True)
+    return (*timing, max_err)
+
+
 def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
                  per_call: tuple):
     """Warm-up plus N_FORMOD_RUNS timed ``fm.formod`` calls with the
@@ -422,11 +567,13 @@ def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
     splitting its own time (``fm.phase_log``); prints the split of the
     median call, whose parts must add up to within PHASE_SPLIT_TOL of
     its wall time.  ``per_call`` is the (turbo, table) launches one call
-    must make.  Returns (median wall seconds, the last timed call's
-    radiances [R, D] float64, launches (turbo, table))."""
+    must make; the tracer kernel launches once per call.  Returns
+    (median wall seconds, the last timed call's radiances [R, D] float64,
+    launches (turbo, table, tracer))."""
     import numpy as np
+    from jurassic_torch.ops import trace as ktrace
     R, D = obs.nr, fm.ctl.nd
-    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = ktrace.LAUNCHES = 0
     fm.formod(atm.copy(), obs.copy())                  # warm-up
     walls = []
     fm.phase_log = []
@@ -436,10 +583,11 @@ def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
         fm.formod(atm.copy(), o_run)
         walls.append(time.perf_counter() - t0)
     splits, fm.phase_log = fm.phase_log, None
-    launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+    launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE,
+                ktrace.LAUNCHES)
     n = N_FORMOD_RUNS + 1
-    if launches != (per_call[0] * n, per_call[1] * n):
-        fail(f"{label}: the fused kernels launched (turbo, table) = "
+    if launches != (per_call[0] * n, per_call[1] * n, n):
+        fail(f"{label}: the kernels launched (turbo, table, tracer) = "
              f"{launches} times over {n} formod runs")
     if fm.last_variant != variant:
         fail(f"{label}: ran variant {fm.last_variant}, expected {variant}")
@@ -447,8 +595,8 @@ def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
     print(f"{label}: median {wall * 1e3:.1f} ms over "
           f"{N_FORMOD_RUNS} runs (min {min(walls) * 1e3:.1f}, max "
           f"{max(walls) * 1e3:.1f}); {R * D / wall:,.0f} rays*ch/s; "
-          f"kernel launches turbo {launches[0]} table {launches[1]}; "
-          f"variant {fm.last_variant}", flush=True)
+          f"kernel launches turbo {launches[0]} table {launches[1]} "
+          f"tracer {launches[2]}; variant {fm.last_variant}", flush=True)
     i_med = sorted(range(len(walls)), key=walls.__getitem__)[len(walls) // 2]
     split, wall_ms = splits[i_med], walls[i_med] * 1e3
     total = sum(split.values())
@@ -466,8 +614,8 @@ def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
 
 def profile_formod(torch, fm, atm, obs, wall_ms: float) -> None:
     """Device time and kernel launches of one flagship formod
-    (torch.profiler, CUDA activity only, the fused kernels by CUDA
-    events; ``profiled_call``): where the time goes.  The busy share is
+    (torch.profiler, CUDA activity only; ``profiled_call``): where the
+    time goes.  The busy share is
     taken of ``wall_ms``, the median formod time without the profiler."""
     _, wall, n, busy, ks = profiled_call(
         torch, lambda: fm.formod(atm.copy(), obs.copy()), names=True)
@@ -476,7 +624,7 @@ def profile_formod(torch, fm, atm, obs, wall_ms: float) -> None:
           f" of the {wall_ms:.1f} ms median formod), "
           f"{n} device kernel launches", flush=True)
     by_name: dict = {}
-    for name, ns in ks:
+    for name, ns, _ in ks:
         count, total = by_name.get(name, (0, 0))
         by_name[name] = (count + 1, total + ns)
     for name, (count, total) in sorted(by_name.items(),
@@ -666,24 +814,42 @@ def eager_golden(torch, ega_fused, ForwardModel, dev, case: str,
 
 
 def device_events(prof) -> list:
-    """(name, nanoseconds) of every device activity a finished
+    """(name, nanoseconds, start ns) of every device activity a finished
     torch.profiler run recorded, read from its raw Kineto events:
     ``key_averages()`` builds a Python object per event first, which
     takes minutes for the million launches of an autodiff pass."""
     from torch.autograd import DeviceType
-    return [(e.name(), e.duration_ns())
+    return [(e.name(), e.duration_ns(), e.start_ns())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA]
+
+
+def busy_ms(ks) -> float:
+    """Milliseconds in which the device ran at least one activity of
+    ``ks``: the union of their intervals, so that kernels overlapping on
+    two streams count once."""
+    busy, end = 0, None
+    for _, ns, start in sorted(ks, key=lambda k: k[2]):
+        stop = start + ns
+        if end is None or start >= end:
+            busy += ns
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e6
 
 
 def profiled_call(torch, fn, names: bool = False):
     """(result, wall seconds, device kernel launches, device busy ms[,
     (name, ns) events]) of ``fn()`` under torch.profiler with CUDA
     activity only (recording the host's operators too slows a
-    launch-bound pass ten times over).  The fused kernels' device time is
-    taken from CUDA events recorded around each of their launches in the
-    same call (``ega_fused.LAUNCH_EVENTS``), in place of the profiler's
-    records of them, which are printed beside it."""
+    launch-bound pass ten times over).  Busy is the union of the device
+    activities' intervals (``busy_ms``); the profiler must have recorded
+    every launch of the hand-written kernels (the fused kernels and the
+    tracer), whose time by CUDA events recorded around each launch in the
+    same call (``ega_fused.LAUNCH_EVENTS``) is printed beside its
+    own."""
     from torch.profiler import ProfilerActivity, profile
 
     from jurassic_torch.ops import ega_fused
@@ -696,14 +862,16 @@ def profiled_call(torch, fn, names: bool = False):
     wall = time.perf_counter() - t0
     events, ega_fused.LAUNCH_EVENTS = ega_fused.LAUNCH_EVENTS, None
     ks = device_events(prof)
-    fused = [ns for name, ns in ks if "ega_fused_kernel" in name]
-    fused_ms = sum(a.elapsed_time(b) for _, a, b in events)
-    busy = (sum(ns for _, ns in ks) - sum(fused)) / 1e6 + fused_ms
-    n = len(ks) - len(fused) + len(events)
+    hand = [k[1] for k in ks
+            if "ega_fused_kernel" in k[0] or "trace_rays_kernel" in k[0]]
+    hand_ms = sum(a.elapsed_time(b) for _, a, b in events)
+    busy, n = busy_ms(ks), len(ks)
     if events:
-        print(f"  fused kernels: {len(events)} launch(es), {fused_ms:.2f} ms "
-              f"by CUDA events; the profiler recorded {len(fused)} of them "
-              f"({sum(fused) / 1e6:.2f} ms)", flush=True)
+        print(f"  hand-written kernels: {len(events)} launch(es), "
+              f"{hand_ms:.2f} ms by CUDA events; the profiler recorded "
+              f"{len(hand)} of them ({sum(hand) / 1e6:.2f} ms)", flush=True)
+    if len(hand) != len(events):
+        fail("the profiler missed launches of the hand-written kernels")
     if not ks or busy <= 0:
         fail("the profiler recorded no device time")
     return (out, wall, n, busy) + ((ks,) if names else ())
@@ -785,7 +953,8 @@ def packaged_runs(torch, ega_fused, fm, atm, obs, label: str, variant: str,
     fm.formod(atm.copy(), o_m)
     ctl.raypack = RAYPACK
     npk = -(-obs.nr // fm.package_size(obs.nr))
-    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+    from jurassic_torch.ops import trace as ktrace
+    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = ktrace.LAUNCHES = 0
     walls = []
     for _ in range(N_PACKAGED_RUNS):
         o_p = obs.copy()
@@ -793,6 +962,7 @@ def packaged_runs(torch, ega_fused, fm, atm, obs, label: str, variant: str,
         fm.formod(atm.copy(), o_p)
         walls.append(time.perf_counter() - t0)
     launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+    n_trace = ktrace.LAUNCHES
     ctl.raypack = 0
     n = N_PACKAGED_RUNS
     wall = statistics.median(walls)
@@ -801,8 +971,10 @@ def packaged_runs(torch, ega_fused, fm, atm, obs, label: str, variant: str,
           f"{wall * 1e3:.1f} ms over {n} runs (min {min(walls) * 1e3:.1f}, "
           f"max {max(walls) * 1e3:.1f}) beside {mono_wall * 1e3:.1f} ms as "
           f"one package; launches turbo {launches[0]} table {launches[1]} "
-          f"over {n} calls; variant {fm.last_variant}", flush=True)
-    if npk != 4 or launches != (per_call[0] * n, per_call[1] * n):
+          f"tracer {n_trace} over {n} calls; variant {fm.last_variant}",
+          flush=True)
+    if npk != 4 or launches != (per_call[0] * n, per_call[1] * n) \
+            or n_trace != npk * n:
         fail(f"{label}: {npk} packages, launches {launches}, expected "
              f"{per_call} per call")
     if fm.last_variant != variant:
@@ -846,6 +1018,7 @@ def pencil_phase(torch, ega_fused, ForwardModel, flagship, tt, stats, dev):
     import dataclasses
     import numpy as np
     from jurassic_torch.forward import _obs_rows
+    from jurassic_torch.ops import trace as ktrace
     ctl, ft, atm, obs = flagship()
     ctl.usetpu, ctl.refrac = 1, 0
     obs = _obs_rows(obs, slice(None, None, 8))
@@ -859,18 +1032,19 @@ def pencil_phase(torch, ega_fused, ForwardModel, flagship, tt, stats, dev):
         fm = ForwardModel(ctl_i, fast_tables=ft, turbo_tables=tt,
                           turbo_stats=stats, device=dev)
         o = obs.copy()
-        ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+        ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = ktrace.LAUNCHES = 0
         t0 = time.perf_counter()
         fm.formod(track_atm(atm), o)
         dt = time.perf_counter() - t0
-        launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+        launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE,
+                    ktrace.LAUNCHES)
         err = np.abs(o.rad - o1.rad).max() / scale
         print(f"pencil IP = {ip}: {obs.nr} rays x {ctl.nd} channels x "
               f"{ctl.ng} gases on a 3-profile track, vs IP = 1: "
               f"{err:.3e} of max|rad| (bar {PENCIL_TOL[ip]}); launches turbo "
-              f"{launches[0]} table {launches[1]}; {dt * 1e3:.0f} ms",
-              flush=True)
-        if not (launches == (1, 0) and fm.last_variant == "turbo"
+              f"{launches[0]} table {launches[1]} tracer {launches[2]}; "
+              f"{dt * 1e3:.0f} ms", flush=True)
+        if not (launches == (1, 0, 1) and fm.last_variant == "turbo"
                 and np.isfinite(o.rad).all() and err <= PENCIL_TOL[ip]):
             fail(f"pencil IP = {ip} failed")
 
@@ -1006,6 +1180,7 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     the same kernels whatever its ray count.  Returns the (turbo, table)
     launches of the FD Jacobians."""
     import numpy as np
+    from jurassic_torch.ops import trace as ktrace
     from jurassic_torch.retrieval import (IDXT, atm2x, idx2name, kernel,
                                           kernel_autodiff)
     K64, nr, npk = autodiff_run(torch, ForwardModel, flagship, dev,
@@ -1049,16 +1224,18 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
         extra = ({"turbo_tables": tt, "turbo_stats": stats}
                  if kernel_mode == "auto" else {})
         m = ForwardModel(ctl_k, fast_tables=ft, device=dev, **extra)
-        ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+        ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = ktrace.LAUNCHES = 0
         t0 = time.perf_counter()
         K_fd = kernel(ctl_k, atm.copy(), obs.copy(), m)
         dt = time.perf_counter() - t0
-        launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+        launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE,
+                    ktrace.LAUNCHES)
         fd_launches[kernel_mode] = launches
         print(f"FD kernel, KERNEL = {kernel_mode}: n = {n}, {n + 1} "
               f"formods in {dt:.1f} s; launches turbo {launches[0]} table "
-              f"{launches[1]}; variant {m.last_variant}", flush=True)
-        if launches != (per[0] * (n + 1), per[1] * (n + 1)):
+              f"{launches[1]} tracer {launches[2]}; variant "
+              f"{m.last_variant}", flush=True)
+        if launches != (per[0] * (n + 1), per[1] * (n + 1), n + 1):
             fail(f"FD kernel ({kernel_mode}): launches {launches}, expected "
                  f"{per} per formod")
         fd_vs_ad(K_fd, K_ad, f"FD ({kernel_mode}, float32 kernel) vs "
@@ -1099,11 +1276,12 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
           f"{nr_cut} rays: their rows bit for bit {same}", flush=True)
     if not (same and (npk > 1 or npk_cut > 1)):
         fail("packaged and one-package Jacobian rows differ")
-    return fd_launches["auto"][0], fd_launches["pallas"][1]
+    return (fd_launches["auto"][0], fd_launches["pallas"][1],
+            fd_launches["auto"][2])
 
 
 def mgpu_rank(rank: int, port: int, ref_file: str, out_dir: str) -> None:
-    """One of two gloo ranks sharing cuda:0 (phase 13): the flagship
+    """One of two gloo ranks sharing cuda:0 (phase 14): the flagship
     through ``ShardedForwardModel`` on the 2 x 1 and 1 x 2 meshes in
     ``auto``, ``pallas`` and the roughened hybrid.  The turbo fits are
     read from FIT_CACHE (the build phase fitted them): a fit here fails
@@ -1510,6 +1688,10 @@ def main() -> None:
           flush=True)
     del rad_k, tau_k, rad_r, tau_r
 
+    phase("tracer kernel vs plain version")
+    tr_ms, tr_plain_ms, tr_b_ms, tr_b_by, tr_err = trace_phase(torch, fm,
+                                                               dev)
+
     phase("goldens through the port's CLI")
     for kernel in ("turbo", "pallas"):
         for case in ("ega", "nadir"):
@@ -1617,9 +1799,8 @@ def main() -> None:
     phase("retrieval Jacobians")
     del fm, fm_p, fm_h, fm_rp, los, common, args, args_t, args_h
     torch.cuda.empty_cache()
-    fd_turbo, fd_table = retrieval_phase(torch, ega_fused, ForwardModel,
-                                         flagship, small_limb, tt, stats,
-                                         dev)
+    fd_turbo, fd_table, fd_trace = retrieval_phase(
+        torch, ega_fused, ForwardModel, flagship, small_limb, tt, stats, dev)
 
     phase("multi-GPU (torch.distributed)")
     torch.cuda.empty_cache()
@@ -1661,6 +1842,20 @@ def main() -> None:
          "launches_1x2_on": f"flagship formod KERNEL = pallas over a 1 x 2 "
                             f"mesh, two gloo ranks on one card, both ranks, "
                             f"{mg_calls} calls"},
+        {"name": "trace_rays", "route": "cuda", "library_ms": None,
+         "source": "jurassic_torch/csrc/trace_rays.cu",
+         "replaces": "jurassic_tpu/geometry.py:486",
+         "launches": launches[2],
+         "launches_on": f"flagship formod KERNEL = auto, one package, "
+                        f"{N_FORMOD_RUNS + 1} calls",
+         "max_abs_err": tr_err,
+         "max_abs_err_of": "largest kernel - plain version difference of "
+                           "any float LosData field, of that field's "
+                           "largest magnitude, over every case and dtype",
+         "ms": tr_ms, "plain_ms": tr_plain_ms, "bound_ms": tr_b_ms,
+         "bound_by": tr_b_by, "jacobian_launches": fd_trace,
+         "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
+                                 "auto, n = 5 (6 formods)"},
         *probe_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@ loop with a per-ray "done" mask that freezes each ray's state where the
 while loop would have stopped it.
 
 The tracer is dtype-parametric: float64 on the CPU (parity with the
-double-precision reference), float32 on CUDA.  The hydrostatic
+double-precision reference), float32 on CUDA.  :func:`trace_rays` runs
+this plain version (:func:`trace_rays_ref`) on CPU tensors and the
+hand-written CUDA kernel ``csrc/trace_rays.cu`` (one thread per ray, the
+same order of operations; ``ops/trace.py``) on CUDA tensors.  The hydrostatic
 equilibrium at the end is host-side float64 NumPy, copied from the JAX
 package (which keeps it in NumPy too), with its differentiable tensor
 twin for ``retrieval.kernel_autodiff``.
@@ -32,6 +35,7 @@ RAD2DEG = 180.0 / np.pi
 Z_REFRAC = 60.0     # refraction considered below this altitude [km]
 ENTRY_MAX_ITERS = 64   # bisection halvings: enough for any |obs - vp|
 #                        below 1e16 km at the 1 m stopping width
+ENTRY_ERROR = "entry-point bisection did not converge"
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +168,8 @@ def build_ray_profiles(ctl: Ctl, atm: Atm, obs: Obs,
         zmin[ir], zmax[ir] = run_cache[(i0, n)]
 
     def ten(a):
-        return torch.as_tensor(np.asarray(a, np.float64)).to(device, dtype)
+        return torch.as_tensor(np.ascontiguousarray(a, np.float64)).to(
+            device, dtype)
 
     return RayProfiles(
         z=ten(z), p=ten(p), t=ten(t), q=ten(q), k=ten(k),
@@ -310,15 +315,56 @@ def _entry_point(xobs, ex0, norm, zmax):
         found = torch.where(act, f, found)
     else:
         if bool((((dmin - dmax).abs() > 0.001) & ~found).any()):
-            raise RuntimeError("entry-point bisection did not converge")
+            raise RuntimeError(ENTRY_ERROR)
     return x
 
 
 def trace_rays(ctl: Ctl, prof: RayProfiles, obs_geo: dict) -> LosData:
     """Trace all rays in the dtype and on the device of ``prof``
-    (raytrace_rays_CPU, CPUdrivers.c:89-95): the step loop is batched
-    over rays, the per-ray arithmetic is that of the JAX
-    ``_trace_single`` (geometry.py:283-480)."""
+    (raytrace_rays_CPU / raytrace_rays_GPU, CPUdrivers.c:89-95,
+    GPUdrivers.cu:151-157).
+
+    CPU tensors run the plain version :func:`trace_rays_ref`; CUDA tensors
+    launch the tracer kernel (``csrc/trace_rays.cu``, one thread per ray)
+    or raise, and a bisection that did not converge raises here after one
+    device-to-host read of its flag (:func:`trace_rays_deferred` leaves
+    that read to the caller)."""
+    los, flag = trace_rays_deferred(ctl, prof, obs_geo)
+    check_entry_flag(flag.cpu().numpy())
+    return los
+
+
+def trace_rays_deferred(ctl: Ctl, prof: RayProfiles, obs_geo: dict):
+    """(LosData, flag) as :func:`trace_rays` traces them, with no host
+    sync: ``flag`` [R] int32 marks the rays whose entry-point bisection
+    did not converge, for the caller's own pull to pass to
+    :func:`check_entry_flag` (zeros on the CPU, where the plain version
+    raises itself)."""
+    dev = prof.z.device
+    if dev.type == "cpu":
+        return (trace_rays_ref(ctl, prof, obs_geo),
+                torch.zeros(prof.z.shape[0], dtype=torch.int32))
+    if dev.type != "cuda":
+        raise ValueError(f"trace_rays: unsupported device {dev}")
+    from .ops.trace import trace_rays_cuda
+    return trace_rays_cuda(prof, obs_geo, float(ctl.rayds),
+                           float(ctl.raydz), bool(ctl.refrac), int(ctl.nlos))
+
+
+def check_entry_flag(flag) -> None:
+    """Raise as the plain version does where any ray's entry-point
+    bisection did not converge (``flag`` pulled to the host)."""
+    if np.any(np.asarray(flag) > 0.5):
+        raise RuntimeError(ENTRY_ERROR)
+
+
+def trace_rays_ref(ctl: Ctl, prof: RayProfiles, obs_geo: dict) -> LosData:
+    """Trace all rays in plain PyTorch, in the dtype and on the device of
+    ``prof`` (raytrace_rays_CPU, CPUdrivers.c:89-95): the step loop is
+    batched over rays, the per-ray arithmetic is that of the JAX
+    ``_trace_single`` (geometry.py:283-480).  The tracer kernel's plain
+    version, and the tracer ``retrieval.kernel_autodiff`` differentiates
+    on any device."""
     dev, dt = prof.z.device, prof.z.dtype
     R = prof.z.shape[0]
     nlos = int(ctl.nlos)

@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "--split-compile=0", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_double
 # tensors and sizes every fused EGA entry point takes (JT_EGA_C_PARAMS in
 # csrc/ega_common.cuh): 13 pointers, then R S F W G P T D n_src flags
 _EGA = [_P] * 13 + [_I] * 10
@@ -41,6 +42,10 @@ ENTRY_POINTS = {
     "jt_peak_fma": [_P, _P, _F, _F, _I, _I, _P],
     "jt_peak_sfu": [_P, _P, _I, _I, _I, _P],
     "jt_peak_copy": [_P, _P, ctypes.c_longlong, _I, _P],
+    # 9 inputs, 15 LosData fields, the flag; R L G W nlos; rayds raydz;
+    # refrac entry_iters; RE DEG2RAD RAD2DEG KB Z_REFRAC; is_double stream
+    "jt_trace_rays": [_P] * 25 + [_I] * 5 + [_D, _D, _I, _I] + [_D] * 5
+    + [_I, _P],
 }
 
 _lib = None

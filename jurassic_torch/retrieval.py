@@ -222,6 +222,10 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
     in the model's dtype and on its device (``retrieval.py:161-284`` of
     the JAX package).
 
+    This is the one caller of the plain tracer on a card: a kernel has no
+    tangent, so ``torch.func.jacfwd`` runs through ``trace_rays_ref``
+    (the JAX package differentiates its jitted tracer).
+
     The state vector scatters into the flat atm point axis (one gather
     and one select per field); HYDZ >= 0 rebuilds pressure per (lon,
     lat) profile inside the differentiated graph
@@ -229,9 +233,10 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
     flow through the rebuild as the FD kernel sees them; per-ray
     profiles are gathers through the window indices of
     ``geometry.ray_window_indices``, so a multi-profile atmosphere gives
-    each scan its own profile by time.  Then ``geometry.trace_rays`` and
-    the model's eager pass (:meth:`~jurassic_torch.forward.ForwardModel.
-    integrate_eager`, its fast or exact tables).  Masked radiances are
+    each scan its own profile by time.  Then the plain tracer
+    ``geometry.trace_rays_ref`` and the model's eager pass
+    (:meth:`~jurassic_torch.forward.ForwardModel.integrate_eager`, its
+    fast or exact tables).  Masked radiances are
     zeroed; the finite rows are returned as float64.
 
     A ray's rows depend only on its own profile and geometry, so the
@@ -244,7 +249,7 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
     from .forward import ForwardModel, _obs_rows
     from .geometry import (build_ray_profiles, hydrostatic_atm,
                            hydrostatic_profile_torch, profile_blocks,
-                           ray_window_indices, trace_rays)
+                           ray_window_indices, trace_rays_ref)
 
     if model is None:
         model = ForwardModel(ctl)
@@ -290,7 +295,7 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
             prof = prof0._replace(p=p[gi], t=t[gi],
                                   q=q[:, gi].movedim(0, 1),
                                   k=k[:, gi].movedim(0, 1))
-            out = model.integrate_eager(trace_rays(ctl, prof, geo))
+            out = model.integrate_eager(trace_rays_ref(ctl, prof, geo))
             return torch.where(masked, 0.0, out.rad)
 
         jac = torch.func.jacfwd(fwd)(ten(x0))              # [r, D, n]

@@ -60,3 +60,80 @@ def scrambled_los(los: LosData, seed: int = 0) -> LosData:
     valid[1::7] = False
     np_[2::7] = S
     return los._replace(np_=np_, valid=valid)
+
+
+# branches of the tracer that the limb scans of the goldens do not all reach
+TRACE_BRANCHES = ("refrac0", "raydz0", "observer_inside", "never_traced",
+                  "one_level")
+
+
+def trace_branch(name: str, ctl, atm, obs) -> None:
+    """Set branch ``name`` of the tracer up in place on a limb scan's
+    ``ctl``, ``atm`` and ``obs`` (of either package: only field names are
+    read and written):
+
+    * ``refrac0``: REFRAC 0, straight rays;
+    * ``raydz0``: RAYDZ 0, every step RAYDS long;
+    * ``observer_inside``: the observer at 70 km, inside the atmosphere,
+      so no ray bisects its entry point;
+    * ``never_traced``: every other view point 5 km above the top of the
+      atmosphere, so those rays are never traced and keep it as their
+      tangent point;
+    * ``one_level``: every other ray's time past the atmosphere's last,
+      so its window holds one level (``geometry._take_lo``)."""
+    if name == "refrac0":
+        ctl.refrac = 0
+    elif name == "raydz0":
+        ctl.raydz = 0.0
+    elif name == "observer_inside":
+        obs.obsz[:] = 70.0
+    elif name == "never_traced":
+        obs.vpz[1::2] = float(np.max(atm.z)) + 5.0
+    elif name == "one_level":
+        obs.time[1::2] = float(np.max(atm.time)) + 1.0
+    else:
+        raise ValueError(f"unknown tracer branch {name!r}")
+
+
+# the goldens whose geometries the tracer's card checks trace, and the
+# branches of a small limb scan beside them
+TRACE_GOLDENS = ("limb", "nadir", "ega", "fov", "gas30")
+# REFRAC 0 is the flagship pencil case's
+TRACE_SMALL_BRANCHES = TRACE_BRANCHES[1:]
+
+
+def trace_cases(goldens) -> dict:
+    """{name: (ctl, atm, obs)} on which the tracer kernel is held to its
+    plain version: the flagship (REFRAC 1) and its pencil geometry
+    (REFRAC 0 on the flat dummy profiles of ``ForwardModel.
+    pencil_trace``), the geometries of ``TRACE_GOLDENS`` under the
+    directory ``goldens`` (tests/goldens of the repository), and a small
+    limb scan (37 rays, NLOS 120) in each of ``TRACE_SMALL_BRANCHES``;
+    hydrostatics applied as ``formod`` applies it."""
+    from pathlib import Path
+
+    from .config import read_ctl
+    from .forward import pencil_geometry
+    from .geometry import hydrostatic_atm
+    from .io_tab import read_atm, read_obs
+    cases = {}
+    ctl, _ft, atm, obs = flagship()
+    hydrostatic_atm(ctl, atm)
+    cases["flagship"] = (ctl, atm, obs)
+    ctl0, _ft, atm0, obs0 = flagship()
+    ctl0.refrac = 0
+    hydrostatic_atm(ctl0, atm0)
+    cases["flagship pencil"] = (*pencil_geometry(ctl0, atm0), obs0)
+    for case in TRACE_GOLDENS:
+        d = Path(goldens) / case
+        c = read_ctl(["formod", str(next(d.glob("*.ctl"))), "o", "a", "r"],
+                     verbose=False)
+        a = read_atm(d / "atm.tab", c)
+        hydrostatic_atm(c, a)
+        cases[case] = (c, a, read_obs(d / "obs.tab", c))
+    for branch in TRACE_SMALL_BRANCHES:
+        c, _ft, a, o = small_limb(ng=4, nd=9, nr=37, nlos=120)
+        trace_branch(branch, c, a, o)
+        hydrostatic_atm(c, a)
+        cases[branch] = (c, a, o)
+    return cases

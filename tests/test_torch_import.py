@@ -92,4 +92,4 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     # every entry point has its argument types in one table
     assert set(_build.ENTRY_POINTS) == {
         "jt_ega_fused_turbo", "jt_ega_fused_table", "jt_peak_fma",
-        "jt_peak_sfu", "jt_peak_copy"}
+        "jt_peak_sfu", "jt_peak_copy", "jt_trace_rays"}
