@@ -39,13 +39,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     on the flat dummy profiles), the ``limb``, ``nadir`` (ground hits,
     one-level windows), ``ega``, ``fov`` and ``gas30`` geometries, and a
     small limb scan with RAYDZ 0, an observer inside the atmosphere, rays
-    never traced and one-level windows (``workloads.trace_cases``):
-    ``np_`` and ``valid`` identical on every ray, each float field's
-    largest difference and whether it is bit for bit, tangent points
-    within 1e-3 km / deg, no bisection flag; at the flagship the kernel's
-    time (CUDA events, median of 10), the plain version's, the bound, and
-    the turbo pass on the kernel's LOS against the same pass on the plain
-    version's (within 5e-5);
+    never traced and one-level windows (``workloads.trace_cases``), and
+    on the edge shapes of ``workloads.TRACE_EDGE_SHAPES`` (L at 1, 2 and
+    around 32 and 64, G and W of 0, 1 and 30, R of 1, 33 and 1084, tied
+    and non-monotone grids, a ray over 48 KB of shared memory): ``np_``
+    and ``valid`` identical on every ray and every float field bit for
+    bit, tangent points within 1e-3 km / deg, no bisection flag; the kernel's branch-free float sqrt,
+    reciprocal and division equal to the operations on every float (sqrt,
+    reciprocal) and on 2^28 random pairs (division,
+    ``ops.trace.fast_ops_check``); at the flagship the wrapper's time
+    (CUDA events around the call, with its allocation and geometry copy,
+    median of 10), the kernel's alone (CUDA events around each launch)
+    on every ray, on the busiest (one ray's chain latency,
+    the floor), on one a SM and in float64, the launch's shared memory,
+    the plain version's time, the bound, and the turbo pass on the
+    kernel's LOS bit for bit the same pass on the plain version's (the
+    build phase prints ptxas's registers, spills and shared memory of
+    each instantiation);
 8.  goldens -- ``python -m jurassic_torch.cli.formod ... USEGPU 1`` on the
     ``ega`` and ``nadir`` goldens against the C oracle's ``rad.tab`` (the
     ``ega`` turbo run with ``BENCH 3``, whose repeat runs must show no
@@ -463,101 +473,194 @@ def trace_bound(torch, prof, los) -> tuple:
             n_bytes, ops)
 
 
+def los_diffs(torch, los, ref) -> tuple:
+    """(rays whose ``np_`` and ``valid`` agree, {float field: (largest
+    difference, bit for bit)}) of two LOS."""
+    from jurassic_torch.geometry import LosData
+    same = (los.np_ == ref.np_) & (los.valid == ref.valid).all(dim=1)
+    diffs = {}
+    for f in LosData._fields:
+        if f in ("np_", "valid"):
+            continue
+        a, b = getattr(los, f), getattr(ref, f)
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        d = torch.where(both_nan, 0.0, (a - b).abs())
+        diffs[f] = (float(d.max()) if d.numel() else 0.0,
+                    bool(torch.equal(a, b) or (both_nan | (a == b)).all()))
+    return int(same.sum()), diffs
+
+
 def trace_phase(torch, fm, dev):
     """The tracer kernel against ``trace_rays_ref`` on the same CUDA
     tensors, in float32 and float64, on every case of
     ``workloads.trace_cases`` (the flagship and its pencil geometry, the
-    goldens' geometries, the branches of a small limb scan):
-    ``np_`` and ``valid`` identical on every ray, each float field's
-    largest difference and whether it is bit for bit, tangent points
-    within TRACE_TP_TOL, no bisection flag; at the flagship (float32) the
-    kernel's time (CUDA events, median of N_KERNEL_RUNS), the plain
-    version's (one run) and the bound, and the turbo pass of ``fm`` on
-    the two LOS (within KERNEL_TOL; bit for bit where the LOS are).
-    Returns (kernel ms, plain ms, bound ms, bound by, max error)."""
-    from jurassic_torch.geometry import (LosData, build_ray_profiles,
+    goldens' geometries, the branches of a small limb scan) and every
+    edge shape of ``workloads.TRACE_EDGE_SHAPES``: ``np_`` and ``valid``
+    identical on every ray, every float field bit for bit, tangent points
+    within TRACE_TP_TOL, no bisection flag; the branch-free operations
+    against the operations; at the flagship the times of
+    :func:`trace_timing` (float32) and the kernel's in float64.  Returns
+    a dict of the times, the bound and the largest difference of any
+    float field over every case and dtype."""
+    from jurassic_torch.geometry import (build_ray_profiles,
                                          trace_rays_deferred, trace_rays_ref)
     from jurassic_torch.ops import trace as ktrace
-    from jurassic_torch.workloads import trace_cases
-    geo_keys = ("obsz", "obslon", "obslat", "vpz", "vplon", "vplat")
-    max_err, timing = 0.0, None
+    from jurassic_torch.workloads import (TRACE_EDGE_SHAPES, profiles_to,
+                                          trace_cases, trace_edge_case)
+    geo_keys = ktrace.GEO_KEYS
+    ops = ktrace.fast_ops_check(1 << 28, seed=1)
+    print(f"tracer fast paths vs the operations: {ops}", flush=True)
+    if ops["sqrt_differ"] or ops["rcp_differ"] or ops["div_differ"] \
+            or not ops["div_in_range"]:
+        fail("the tracer's branch-free float operations differ from the "
+             "operations")
+    timing, max_err = None, 0.0
     n_exact = n_fields = 0
-    for name, (ctl, atm, obs) in trace_cases(REPO / "tests"
-                                             / "goldens").items():
-        geo = {k: getattr(obs, k) for k in geo_keys}
+    cases = [(name, *case) for name, case in
+             trace_cases(REPO / "tests" / "goldens").items()]
+    cases += [("edge " + "-".join(map(str, shape)), *trace_edge_case(*shape))
+              for shape in TRACE_EDGE_SHAPES]
+    for name, ctl, a1, a2 in cases:
+        edge = name.startswith("edge")
         for dt in (torch.float32, torch.float64):
-            prof = build_ray_profiles(ctl, atm, obs, dt, dev)
+            if edge:
+                prof, geo = profiles_to(a1, dt, dev), a2
+            else:
+                geo = {k: getattr(a2, k) for k in geo_keys}
+                prof = build_ray_profiles(ctl, a1, a2, dt, dev)
             los, flag = trace_rays_deferred(ctl, prof, geo)
             ref = trace_rays_ref(ctl, prof, geo)
             torch.cuda.synchronize()
-            R = los.np_.shape[0]
-            same = ((los.np_ == ref.np_)
-                    & (los.valid == ref.valid).all(dim=1))
-            diffs = {}
-            for f in LosData._fields:
-                a, b = getattr(los, f), getattr(ref, f)
-                if f in ("np_", "valid"):
-                    continue
-                both_nan = torch.isnan(a) & torch.isnan(b)
-                d = torch.where(both_nan, 0.0, (a - b).abs())
-                diffs[f] = (float(d.max()) if d.numel() else 0.0,
-                            bool(torch.equal(a, b) or (
-                                both_nan | (a == b)).all()))
+            R, L = prof.z.shape
+            n_same, diffs = los_diffs(torch, los, ref)
             n_fields += len(diffs)
             n_exact += sum(e for _, e in diffs.values())
+            max_err = max([max_err, *(v for v, _ in diffs.values())])
             tp = max(diffs[f][0] for f in ("tpz", "tplon", "tplat"))
-            label = f"tracer {name} ({str(dt)[6:]}, {R} rays, NLOS " \
+            label = f"tracer {name} ({str(dt)[6:]}, {R} rays, L {L}, G " \
+                f"{prof.q.shape[1]}, W {prof.k.shape[1]}, NLOS " \
                 f"{ctl.nlos}, REFRAC {ctl.refrac}, short {prof.short})"
             inexact = {f: v for f, (v, e) in diffs.items() if not e}
-            print(f"{label}: np_ and valid identical on {int(same.sum())} "
-                  f"of {R} rays; bit for bit in "
-                  f"{len(diffs) - len(inexact)} of {len(diffs)} float "
-                  f"fields" + ("; largest differences " + ", ".join(
-                      f"{f} {v:.3e}" for f, v in inexact.items())
+            print(f"{label}: np_ and valid identical on {n_same} of {R} "
+                  f"rays; bit for bit in {len(diffs) - len(inexact)} of "
+                  f"{len(diffs)} float fields" + (
+                      "; largest differences " + ", ".join(
+                          f"{f} {v:.3e}" for f, v in inexact.items())
                       if inexact else ""), flush=True)
-            if int(same.sum()) != R or int(flag.sum()) != 0:
+            if n_same != R or int(flag.sum()) != 0:
                 fail(f"{label}: np_/valid differ or a bisection flag is "
                      "set")
             if not tp <= TRACE_TP_TOL:
                 fail(f"{label}: tangent points differ by {tp:.3e}")
-            scaled = [v / max(float(getattr(ref, f).abs().nan_to_num()
-                                    .max()), 1e-30)
-                      for f, v in inexact.items()]
-            max_err = max([max_err, *scaled])
             if name == "flagship" and dt == torch.float32:
-                args = (prof, geo, ctl.rayds, ctl.raydz, ctl.refrac,
-                        ctl.nlos)
-                k_ms = cuda_ms(torch, lambda: ktrace.trace_rays_cuda(*args),
-                               N_KERNEL_RUNS)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                trace_rays_ref(ctl, prof, geo)
-                torch.cuda.synchronize()
-                p_ms = (time.perf_counter() - t0) * 1e3
-                b_ms, b_by, n_bytes, ops = trace_bound(torch, prof, los)
-                print(f"tracer flagship: kernel {k_ms:.3f} ms (median of "
-                      f"{N_KERNEL_RUNS}, the wrapper with its allocation "
-                      f"and geometry copy), plain version {p_ms:.1f} ms "
-                      f"(one run); bound {b_ms:.4f} ms by {b_by}: "
-                      f"{n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP",
-                      flush=True)
-                timing = (k_ms, p_ms, b_ms, b_by)
-                out_k = fm.integrate(los)
-                out_r = fm.integrate(ref)
-                e_rad = float((out_k.rad - out_r.rad).abs().max()
-                              / out_r.rad.abs().max())
-                e_tau = float((out_k.tau - out_r.tau).abs().max())
-                print(f"flagship turbo pass on the kernel's LOS vs on the "
-                      f"plain version's: rad {e_rad:.3e} of max|rad|, tau "
-                      f"{e_tau:.3e} (bar {KERNEL_TOL}); bit for bit "
-                      f"{torch.equal(out_k.rad, out_r.rad)}", flush=True)
-                if not (e_rad <= KERNEL_TOL and e_tau <= KERNEL_TOL):
-                    fail("the tracer kernel's LOS moves the flagship "
-                         "radiances beyond KERNEL_TOL")
+                timing = trace_timing(torch, ctl, prof, geo, los, ref, fm)
+            elif name == "flagship":
+                k64 = kernel_ms(torch, lambda: ktrace.trace_rays_cuda(
+                    prof, geo, ctl.rayds, ctl.raydz, ctl.refrac, ctl.nlos),
+                    "jt_trace_rays", N_KERNEL_RUNS)
+                smem = ktrace.shared_memory_bytes(
+                    L, prof.q.shape[1], prof.k.shape[1], ctl.nlos, dt)
+                print(f"tracer flagship, float64: kernel {k64:.4f} ms "
+                      f"(median of {N_KERNEL_RUNS}), {smem} B of shared "
+                      f"memory a ray", flush=True)
+                timing["kernel_ms_f64"] = k64
     print(f"tracer kernel vs plain version: {n_exact} of {n_fields} float "
           f"fields bit for bit over all cases; largest difference "
-          f"{max_err:.3e} of its field's max", flush=True)
-    return (*timing, max_err)
+          f"{max_err}", flush=True)
+    if n_exact != n_fields:
+        fail("the tracer kernel is not bit for bit its plain version")
+    return {**timing, "max_abs_err": max_err}
+
+
+def kernel_ms(torch, fn, name: str, n: int) -> float:
+    """Median milliseconds of the launches of ``name`` over ``n`` calls of
+    ``fn``, by the CUDA events a wrapper records around its C launch call
+    (``ega_fused.LAUNCH_EVENTS``), after one warm-up call: the kernel
+    without the wrapper's allocation and copies, but with the host's
+    launch latency (the device idles before each launch, since the
+    wrapper's geometry copy synchronises)."""
+    from jurassic_torch.ops import ega_fused
+    fn()
+    torch.cuda.synchronize()
+    before, ega_fused.LAUNCH_EVENTS = ega_fused.LAUNCH_EVENTS, []
+    try:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for k, a, b in ega_fused.LAUNCH_EVENTS
+              if k == name]
+    finally:
+        ega_fused.LAUNCH_EVENTS = before
+    if len(ms) != n:
+        fail(f"{len(ms)} launches of {name} recorded, not {n}")
+    return statistics.median(ms)
+
+
+def ray_subset(torch, prof, geo: dict, rows):
+    """(profiles, geometry) of the rays ``rows``."""
+    import numpy as np
+    idx = torch.as_tensor(rows, device=prof.z.device)
+    sub = prof._replace(**{f: getattr(prof, f)[idx].contiguous() for f in
+                           ("z", "p", "t", "q", "k", "nlev", "zmin",
+                            "zmax")})
+    return sub, {k: np.asarray(v)[rows] for k, v in geo.items()}
+
+
+def trace_timing(torch, ctl, prof, geo, los, ref, fm) -> dict:
+    """The flagship tracer's times (float32): the wrapper (CUDA events
+    around the call, with its allocation and geometry copy; median of
+    N_KERNEL_RUNS), the kernel alone (``kernel_ms``) on every ray, on the
+    busiest ray (the floor: one ray's chain) and on the 132 busiest (one
+    a SM), the plain version (one run), the bound; and the turbo pass of
+    ``fm`` on the kernel's LOS against the pass on the plain version's
+    (bit for bit)."""
+    from jurassic_torch.geometry import trace_rays_ref
+    from jurassic_torch.ops import trace as ktrace
+    args = (ctl.rayds, ctl.raydz, ctl.refrac, ctl.nlos)
+    call = lambda p, g: (lambda: ktrace.trace_rays_cuda(p, g, *args))
+    name = "jt_trace_rays"
+    w_ms = cuda_ms(torch, call(prof, geo), N_KERNEL_RUNS)
+    k_ms = kernel_ms(torch, call(prof, geo), name, N_KERNEL_RUNS)
+    n_sm = torch.cuda.get_device_properties(prof.z.device) \
+        .multi_processor_count
+    busy = torch.argsort(-los.np_, stable=True)[:n_sm].cpu().numpy()
+    one_ms, sm_ms = (kernel_ms(torch, call(*ray_subset(torch, prof, geo,
+                                                       rows)),
+                               name, N_KERNEL_RUNS)
+                     for rows in (busy[:1], busy))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace_rays_ref(ctl, prof, geo)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, b_by, n_bytes, ops = trace_bound(torch, prof, los)
+    R, L = prof.z.shape
+    smem = ktrace.shared_memory_bytes(L, prof.q.shape[1], prof.k.shape[1],
+                                      ctl.nlos, prof.z.dtype)
+    print(f"tracer flagship: the wrapper {w_ms:.4f} ms (CUDA events around "
+          f"the call, with its allocation and geometry copy), the kernel "
+          f"alone {k_ms:.4f} ms (CUDA events around each launch), on the busiest ray alone "
+          f"({int(los.np_[int(busy[0])])} active steps of {ctl.nlos}) "
+          f"{one_ms:.4f} ms, on the {n_sm} busiest {sm_ms:.4f} ms "
+          f"(medians of {N_KERNEL_RUNS}); plain version {p_ms:.1f} ms "
+          f"(one run); bound {b_ms:.4f} ms by {b_by}: "
+          f"{n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; {R} blocks of "
+          f"one warp, {smem} B of shared memory each", flush=True)
+    out_k = fm.integrate(los)
+    out_r = fm.integrate(ref)
+    e_rad = float((out_k.rad - out_r.rad).abs().max()
+                  / out_r.rad.abs().max())
+    e_tau = float((out_k.tau - out_r.tau).abs().max())
+    same = torch.equal(out_k.rad, out_r.rad)
+    print(f"flagship turbo pass on the kernel's LOS vs on the plain "
+          f"version's: rad {e_rad:.3e} of max|rad|, tau {e_tau:.3e} (bar "
+          f"{KERNEL_TOL}); bit for bit {same}", flush=True)
+    if not (same and e_tau == 0.0):
+        fail("the flagship turbo pass on the tracer kernel's LOS is not "
+             "bit for bit the pass on the plain version's")
+    return {"ms": w_ms, "kernel_ms": k_ms, "floor_kernel_ms": one_ms,
+            "kernel_ms_132": sm_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def timed_formod(torch, ega_fused, fm, atm, obs, label: str, variant: str,
@@ -1689,8 +1792,7 @@ def main() -> None:
     del rad_k, tau_k, rad_r, tau_r
 
     phase("tracer kernel vs plain version")
-    tr_ms, tr_plain_ms, tr_b_ms, tr_b_by, tr_err = trace_phase(torch, fm,
-                                                               dev)
+    tracer = trace_phase(torch, fm, dev)
 
     phase("goldens through the port's CLI")
     for kernel in ("turbo", "pallas"):
@@ -1848,12 +1950,21 @@ def main() -> None:
          "launches": launches[2],
          "launches_on": f"flagship formod KERNEL = auto, one package, "
                         f"{N_FORMOD_RUNS + 1} calls",
-         "max_abs_err": tr_err,
+         **tracer,
          "max_abs_err_of": "largest kernel - plain version difference of "
-                           "any float LosData field, of that field's "
-                           "largest magnitude, over every case and dtype",
-         "ms": tr_ms, "plain_ms": tr_plain_ms, "bound_ms": tr_b_ms,
-         "bound_by": tr_b_by, "jacobian_launches": fd_trace,
+                           "any float LosData field over every case, edge "
+                           "shape and dtype",
+         "ms_of": "the wrapper trace_rays_cuda, CUDA events around the "
+                  "call (allocation, geometry copy, launch)",
+         "kernel_ms_of": "the kernel alone, CUDA events around each "
+                         "launch (with the host's launch latency)",
+         "floor_kernel_ms_of": "the kernel alone on the busiest flagship "
+                               "ray",
+         "kernel_ms_132_of": "the kernel alone on the 132 busiest "
+                             "flagship rays",
+         "kernel_ms_f64_of": "the kernel alone at the flagship in "
+                             "float64",
+         "jacobian_launches": fd_trace,
          "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
                                  "auto, n = 5 (6 formods)"},
         *probe_records]}), flush=True)

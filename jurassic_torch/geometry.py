@@ -13,7 +13,7 @@ while loop would have stopped it.
 The tracer is dtype-parametric: float64 on the CPU (parity with the
 double-precision reference), float32 on CUDA.  :func:`trace_rays` runs
 this plain version (:func:`trace_rays_ref`) on CPU tensors and the
-hand-written CUDA kernel ``csrc/trace_rays.cu`` (one thread per ray, the
+hand-written CUDA kernel ``csrc/trace_rays.cu`` (one warp per ray, the
 same order of operations; ``ops/trace.py``) on CUDA tensors.  The hydrostatic
 equilibrium at the end is host-side float64 NumPy, copied from the JAX
 package (which keeps it in NumPy too), with its differentiable tensor
@@ -325,7 +325,7 @@ def trace_rays(ctl: Ctl, prof: RayProfiles, obs_geo: dict) -> LosData:
     GPUdrivers.cu:151-157).
 
     CPU tensors run the plain version :func:`trace_rays_ref`; CUDA tensors
-    launch the tracer kernel (``csrc/trace_rays.cu``, one thread per ray)
+    launch the tracer kernel (``csrc/trace_rays.cu``, one warp per ray)
     or raise, and a bisection that did not converge raises here after one
     device-to-host read of its flag (:func:`trace_rays_deferred` leaves
     that read to the caller)."""

@@ -46,6 +46,9 @@ ENTRY_POINTS = {
     # refrac entry_iters; RE DEG2RAD RAD2DEG KB Z_REFRAC; is_double stream
     "jt_trace_rays": [_P] * 25 + [_I] * 5 + [_D, _D, _I, _I] + [_D] * 5
     + [_I, _P],
+    "jt_trace_smem_bytes": [_I] * 5 + [_P],   # L G W nlos is_double out
+    "jt_trace_fast_ops_check": [_P, ctypes.c_longlong, ctypes.c_longlong,
+                                _P],
 }
 
 _lib = None

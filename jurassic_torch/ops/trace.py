@@ -2,12 +2,14 @@
 of the JAX package's jitted ``_trace_rays_jit`` (``jurassic_tpu/
 geometry.py:486-498``, ``jax.jit`` of ``vmap(_trace_single)``).
 
-One thread traces one ray, entry-point bisection, NLOS steps, tangent
+One warp traces one ray, entry-point bisection, NLOS steps, tangent
 point, trapezoid rule and column densities, in the order of operations
-of the plain version ``geometry.trace_rays_ref``.  :func:`trace_rays_cuda`
-checks the tensors, allocates the outputs and launches the kernel on the
-current stream; ``geometry.trace_rays`` dispatches to it for CUDA
-tensors.  ``LAUNCHES`` counts its launches.
+of the plain version ``geometry.trace_rays_ref``, with the ray's profiles
+and the step chain's records in its block's shared memory
+(:func:`shared_memory_bytes`).  :func:`trace_rays_cuda` checks the
+tensors, allocates the outputs and launches the kernel on the current
+stream; ``geometry.trace_rays`` dispatches to it for CUDA tensors.
+``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
@@ -21,6 +23,33 @@ from . import ega_fused
 
 LAUNCHES = 0        # launches of the tracer kernel
 GEO_KEYS = ("obsz", "obslon", "obslat", "vpz", "vplon", "vplat")
+SMEM_LIMIT = 232448  # shared memory one block may use on the H100 (227 KB)
+
+
+def shared_memory_bytes(L: int, G: int, W: int, nlos: int,
+                        dtype: torch.dtype) -> int:
+    """Bytes of shared memory the kernel gives a ray's block at these sizes
+    (its profiles z, p, t, q, k and the step chain's records; the
+    kernel's own count, ``jt_trace_smem_bytes``).  Raises ValueError
+    where they exceed ``SMEM_LIMIT``: the kernel reads nothing of a ray's
+    profiles and records from global memory."""
+    import ctypes
+
+    from ._build import load_library
+
+    n = ctypes.c_longlong()
+    rc = load_library().jt_trace_smem_bytes(
+        L, G, W, nlos, int(dtype == torch.float64), ctypes.addressof(n))
+    if rc != 0:
+        raise ValueError(f"jt_trace_smem_bytes refused L = {L}, G = {G}, "
+                         f"W = {W}, NLOS = {nlos}")
+    if n.value > SMEM_LIMIT:
+        raise ValueError(
+            f"the tracer kernel keeps a ray's profiles and step records in "
+            f"shared memory: {n.value} bytes at L = {L}, G = {G}, W = {W}, "
+            f"NLOS = {nlos} in {dtype} exceed one block's {SMEM_LIMIT} "
+            f"bytes (227 KB)")
+    return n.value
 
 
 def check_inputs(prof: RayProfiles, geo: torch.Tensor, nlos: int) -> None:
@@ -29,7 +58,8 @@ def check_inputs(prof: RayProfiles, geo: torch.Tensor, nlos: int) -> None:
     [R, L], a non-contiguous tensor, or NLOS < 3 (the tangent point reads
     three neighbouring points).  ``geo`` is the observation geometry
     [6, R] and ``prof.nlev`` int32, as :func:`trace_rays_cuda` passes
-    them."""
+    them.  A ray's shared memory is :func:`shared_memory_bytes`'s to
+    refuse."""
     z = prof.z
     if not isinstance(z, torch.Tensor) or z.dim() != 2:
         raise ValueError("prof.z must be a [R, L] tensor")
@@ -58,8 +88,9 @@ def trace_rays_cuda(prof: RayProfiles, obs_geo: dict, rayds: float,
     the card in the dtype of ``prof``: ``flag`` [R] int32 is 1 where the
     entry-point bisection did not converge (the plain version raises
     there; the caller reads the flag with its own device-to-host pull).
-    Raises on anything :func:`check_inputs` refuses and on a failed
-    launch; nothing falls back."""
+    Raises on anything :func:`check_inputs` or
+    :func:`shared_memory_bytes` refuses and on a failed launch; nothing
+    falls back."""
     global LAUNCHES
     import ctypes
 
@@ -74,6 +105,7 @@ def trace_rays_cuda(prof: RayProfiles, obs_geo: dict, rayds: float,
     check_inputs(prof, geo, nlos)
     R, L = prof.z.shape
     G, W = prof.q.shape[1], prof.k.shape[1]
+    shared_memory_bytes(L, G, W, nlos, dt)
 
     def empty(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -92,16 +124,17 @@ def trace_rays_cuda(prof: RayProfiles, obs_geo: dict, rayds: float,
     events = ega_fused.LAUNCH_EVENTS
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
+        args = (*(ptr(x) for x in (prof.z, prof.p, prof.t, prof.q, prof.k,
+                                   prof.nlev, prof.zmin, prof.zmax, geo)),
+                *(ptr(x) for x in los), ptr(flag),
+                R, L, G, W, nlos, float(rayds), float(raydz),
+                int(bool(refrac)), ENTRY_MAX_ITERS, RE, DEG2RAD, RAD2DEG,
+                KB, Z_REFRAC, int(dt == torch.float64),
+                ctypes.c_void_p(stream.cuda_stream))
         if events is not None:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record(stream)
-        rc = lib.jt_trace_rays(
-            *(ptr(x) for x in (prof.z, prof.p, prof.t, prof.q, prof.k,
-                               prof.nlev, prof.zmin, prof.zmax, geo)),
-            *(ptr(x) for x in los), ptr(flag),
-            R, L, G, W, nlos, float(rayds), float(raydz), int(bool(refrac)),
-            ENTRY_MAX_ITERS, RE, DEG2RAD, RAD2DEG, KB, Z_REFRAC,
-            int(dt == torch.float64), ctypes.c_void_p(stream.cuda_stream))
+        rc = lib.jt_trace_rays(*args)
         if events is not None:
             ev[1].record(stream)
             events.append(("jt_trace_rays", *ev))
@@ -110,3 +143,36 @@ def trace_rays_cuda(prof: RayProfiles, obs_geo: dict, rayds: float,
                            f"(cudaError {rc})")
     LAUNCHES += 1
     return los, flag
+
+
+FAST_OPS_FIELDS = ("sqrt_in_range", "sqrt_differ", "rcp_in_range",
+                   "rcp_differ", "div_in_range", "div_differ")
+
+
+def fast_ops_check(n_div: int = 1 << 30, seed: int = 0,
+                   device="cuda") -> dict:
+    """The tracer kernel's branch-free float sqrt, reciprocal and division
+    (``Ops<float, false>`` in ``csrc/trace_rays.cu``) against the
+    operations themselves on the card: over every float for sqrt and the
+    reciprocal, over ``n_div`` random pairs for division.  Returns the
+    counts of inputs in each fast path's range and of those where its
+    result differs in any bit (``FAST_OPS_FIELDS``); the kernel is bit for
+    bit its plain version only where every ``*_differ`` is 0."""
+    import ctypes
+
+    from ._build import load_library
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the check runs on a CUDA device, got {dev}")
+    counts = torch.zeros(len(FAST_OPS_FIELDS), dtype=torch.int64,
+                         device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.jt_trace_fast_ops_check(
+            ctypes.c_void_p(counts.data_ptr()), n_div, seed,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"jt_trace_fast_ops_check: launch failed "
+                           f"(cudaError {rc})")
+    return dict(zip(FAST_OPS_FIELDS, counts.tolist()))

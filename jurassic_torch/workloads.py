@@ -137,3 +137,98 @@ def trace_cases(goldens) -> dict:
         hydrostatic_atm(c, a)
         cases[branch] = (c, a, o)
     return cases
+
+
+# (L, G, W, R, NLOS, grid) of the tracer kernel's edge shapes: level
+# counts at and around the warp's 32 (a vote chunk more or less), one
+# level (a one-level window) and two, gas and window counts 0, 1 and 30,
+# one ray, one warp's count and one more, the flagship's count; altitude
+# grids with tied levels and non-monotone ones; and a ray whose shared
+# memory exceeds the 48 KB a block has without opting in (NLOS 2000)
+TRACE_EDGE_SHAPES = (
+    (1, 1, 1, 33, 120, "ascending"),
+    (2, 0, 1, 33, 120, "ties"),
+    (2, 1, 0, 1, 33, "nonmonotone"),
+    (31, 30, 0, 1, 128, "ascending"),
+    (31, 1, 1, 33, 120, "nonmonotone"),
+    (32, 1, 1, 33, 120, "nonmonotone"),
+    (32, 30, 1, 1084, 120, "ties"),
+    (33, 0, 0, 1084, 120, "ascending"),
+    (33, 1, 1, 33, 33, "ties"),
+    (64, 30, 1, 33, 128, "ties"),
+    (64, 4, 1, 1, 120, "nonmonotone"),
+    (65, 1, 0, 33, 120, "nonmonotone"),
+    (65, 0, 1, 33, 128, "ascending"),
+    (92, 30, 1, 1084, 120, "ascending"),
+    (92, 0, 1, 1, 120, "nonmonotone"),
+    (92, 1, 0, 33, 120, "ties"),
+    (92, 30, 1, 33, 2000, "ties"),
+)
+
+
+def trace_edge_case(L: int, G: int, W: int, R: int, nlos: int, grid: str,
+                    seed: int = 0):
+    """(ctl, profiles, obs geometry) of an edge shape of the tracer kernel
+    (``TRACE_EDGE_SHAPES``), made from ``seed``: R rays of the flagship's
+    limb scan (evenly spaced), RAYDS 50 / RAYDZ 5 / REFRAC 1, and per-ray
+    profiles of L levels over 0-80 km (float64 CPU tensors, padded as
+    ``geometry.build_ray_profiles`` pads: every third ray's window holds
+    up to three levels fewer).  ``grid`` "ties" repeats a level of every
+    other ray's window at a few places, "nonmonotone" swaps a few
+    neighbouring levels of every other ray's; "ascending" does neither.
+    A zero pressure at one level of every fifth ray takes the
+    interpolation's linear fallback."""
+    from .geometry import RayProfiles
+    if grid not in ("ascending", "ties", "nonmonotone"):
+        raise ValueError(f"unknown grid {grid!r}")
+    rng = np.random.default_rng(seed)
+    ctl = synthetic_ctl(ng=4, nd=9)
+    ctl.nlos, ctl.rayds, ctl.raydz, ctl.refrac = nlos, 50.0, 5.0, 1
+    scan = limb_geometry(z0=3.0, z1=68.0, dz=0.06)
+    rows = np.linspace(0, scan.nr - 1, R).astype(int)
+    geo = {k: np.asarray(getattr(scan, k), np.float64)[rows]
+           for k in ("obsz", "obslon", "obslat", "vpz", "vplon", "vplat")}
+    nlev = np.full(R, L)
+    nlev[::3] = np.maximum(1, L - rng.integers(0, 4, R))[::3]
+    z = np.zeros((R, L))
+    for r in range(R):
+        n = nlev[r]
+        zr = np.sort(rng.uniform(0.0, 80.0, n))
+        if n > 1:
+            zr[0], zr[-1] = 0.0, 80.0
+        if r % 2 == 0 and n > 1 and grid == "ties":
+            for j in rng.integers(0, n - 1, 1 + n // 10):
+                zr[j + 1] = zr[j]
+        if r % 2 == 0 and n > 1 and grid == "nonmonotone":
+            for j in rng.integers(0, n - 1, 1 + n // 10):
+                zr[[j, j + 1]] = zr[[j + 1, j]]
+        z[r, :n] = zr
+        z[r, n:] = zr[-1] + np.arange(1, L - n + 1) * 1e6
+    last = np.minimum(np.arange(L)[None, :], nlev[:, None] - 1)
+    live = np.take_along_axis(z, last, axis=1)
+    p = 1013.25 * np.exp(-live / 7.0) * rng.uniform(0.9, 1.1, (R, L))
+    p[::5, rng.integers(0, L)] = 0.0
+    t = rng.uniform(180.0, 300.0, (R, L))
+    q = rng.uniform(0.0, 1e-3, (R, G, L))
+    k = rng.uniform(0.0, 1e-3, (R, W, L))
+    # the padding repeats the last level's values
+    p, t = (np.take_along_axis(a, last, axis=1) for a in (p, t))
+    q = np.take_along_axis(q, last[:, None, :].repeat(G, 1), axis=2)
+    k = np.take_along_axis(k, last[:, None, :].repeat(W, 1), axis=2)
+    win = np.arange(L)[None, :] < nlev[:, None]
+    zmin = np.where(win, z, np.inf).min(axis=1)
+    zmax = np.where(win, z, -np.inf).max(axis=1)
+    ten = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float64))
+    prof = RayProfiles(z=ten(z), p=ten(p), t=ten(t), q=ten(q), k=ten(k),
+                       nlev=torch.as_tensor(nlev, dtype=torch.int64),
+                       zmin=ten(zmin), zmax=ten(zmax),
+                       short=bool((nlev < 2).any()))
+    return ctl, prof, geo
+
+
+def profiles_to(prof, dtype, device):
+    """``prof`` with its float tensors in ``dtype`` on ``device``."""
+    return prof._replace(**{
+        f: getattr(prof, f).to(device, dtype)
+        for f in ("z", "p", "t", "q", "k", "zmin", "zmax")},
+        nlev=prof.nlev.to(device))

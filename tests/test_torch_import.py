@@ -92,4 +92,5 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     # every entry point has its argument types in one table
     assert set(_build.ENTRY_POINTS) == {
         "jt_ega_fused_turbo", "jt_ega_fused_table", "jt_peak_fma",
-        "jt_peak_sfu", "jt_peak_copy", "jt_trace_rays"}
+        "jt_peak_sfu", "jt_peak_copy", "jt_trace_rays",
+        "jt_trace_fast_ops_check", "jt_trace_smem_bytes"}

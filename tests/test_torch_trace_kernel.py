@@ -7,6 +7,14 @@ runs in ``tests/test_torch_kernel_cuda.py`` on a card).
 * The wrapper's checks (``ops.trace.check_inputs``) refuse a dtype, a
   shape or a layout the kernel cannot read, and the wrapper refuses a
   tensor off the card before it loads the library.
+* ``ops.trace.shared_memory_bytes`` takes a ray's shared memory up to
+  one block's limit and refuses it beyond, naming the limit (the bytes
+  themselves are the kernel library's count, held at the flagship, the
+  goldens' largest shape and the limit on a card).
+* The kernel's interval search, a count by warp vote over chunks of 32
+  levels, mirrored in NumPy, is ``geometry._interval_index`` on seeded
+  grids with padding, ties, non-monotone levels and one-level windows:
+  the argument that keeps the index, and so the bits, the same.
 * ``_build.ENTRY_POINTS`` declares as many arguments as each C entry
   point's ``extern "C"`` signature in ``csrc/`` has, every pointer as a
   ``c_void_p``: passing a pointer as a 32-bit int would cut it.
@@ -21,7 +29,9 @@ import torch
 from jurassic_torch import geometry as tg
 from jurassic_torch.ops import _build
 from jurassic_torch.ops import trace as ktrace
-from jurassic_torch.workloads import small_limb, trace_branch
+from jurassic_torch.workloads import (TRACE_EDGE_SHAPES, profiles_to,
+                                     small_limb, trace_branch,
+                                     trace_edge_case)
 
 from test_torch_host_copies import one_thread  # noqa: F401 (autouse)
 
@@ -102,6 +112,86 @@ def test_check_refuses(fault):
         nlos = 2
     with pytest.raises(ValueError):
         ktrace.check_inputs(prof, geo, nlos)
+
+
+class _SmemLibrary:
+    """Stands in for the kernel library: ``jt_trace_smem_bytes`` reports
+    ``n`` bytes."""
+
+    def __init__(self, n):
+        self.n, self.calls = n, []
+
+    def jt_trace_smem_bytes(self, L, G, W, nlos, is_double, out):
+        self.calls.append((L, G, W, nlos, is_double))
+        ctypes.c_longlong.from_address(out).value = self.n
+        return 0
+
+
+@pytest.mark.parametrize("over", [0, 1])
+def test_shared_memory_up_to_the_limit(monkeypatch, over):
+    """A ray's shared memory is taken up to one block's 232,448 bytes and
+    refused beyond with a ValueError that names the limit; the library is
+    asked in the kernel's dtype."""
+    lib = _SmemLibrary(ktrace.SMEM_LIMIT + over)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    if over:
+        with pytest.raises(ValueError, match="232448 bytes"):
+            ktrace.shared_memory_bytes(92, 30, 1, 3914, torch.float64)
+    else:
+        assert ktrace.shared_memory_bytes(92, 30, 1, 3913, torch.float64) \
+            == 232448
+    assert lib.calls == [(92, 30, 1, 3913 + over, 1)]
+
+
+@pytest.mark.parametrize("shape", TRACE_EDGE_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_check_accepts_the_edge_shapes(shape):
+    """Every edge shape of the card tests (G = 0 and W = 0 among them)
+    passes the wrapper's checks in both dtypes, padded as
+    ``build_ray_profiles`` pads."""
+    ctl, prof, geo = trace_edge_case(*shape)
+    L, G, W, R, nlos, _grid = shape
+    assert prof.q.shape == (R, G, L) and prof.k.shape == (R, W, L)
+    assert prof.short == bool((prof.nlev < 2).any())
+    for dt in (torch.float32, torch.float64):
+        p = profiles_to(prof, dt, "cpu")
+        p = p._replace(nlev=p.nlev.to(torch.int32))
+        g = torch.as_tensor(np.stack([geo[k] for k in GEO])).to(dt)
+        ktrace.check_inputs(p, g, nlos)
+
+
+def vote_index(z, nlev, z0):
+    """The kernel's ``interval_index``: lane l of the warp tests level
+    c + l of each chunk c of 32 (false beyond L), the ballot's bits are
+    counted, the chunks' counts summed; then the clamp."""
+    L = z.shape[0]
+    below = 0
+    for c in range(0, L, 32):
+        lanes = c + np.arange(32)
+        pred = (lanes < L) & (z[np.minimum(lanes, L - 1)] <= z0)
+        ballot = sum(1 << lane for lane in np.nonzero(pred)[0].tolist())
+        below += bin(ballot).count("1")
+    return min(max(below - 1, 0), nlev - 2)
+
+
+@pytest.mark.parametrize("shape", TRACE_EDGE_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_vote_count_is_the_interval_index(shape):
+    ctl, prof, _geo = trace_edge_case(*shape, seed=3)
+    R = min(prof.z.shape[0], 12)
+    z, nlev = prof.z[:R].numpy(), prof.nlev[:R].numpy()
+    rng = np.random.default_rng(4)
+    # altitudes between, below and above the levels, the levels
+    # themselves (ties at equality) and NaN
+    z0 = np.concatenate([rng.uniform(-10.0, 90.0, (R, 6)),
+                         z[:, rng.integers(0, z.shape[1], 4)],
+                         np.full((R, 1), np.nan)], axis=1)
+    ref = tg._interval_index(prof._replace(z=prof.z[:R],
+                                           nlev=prof.nlev[:R]),
+                             torch.from_numpy(z0)).numpy()
+    got = np.array([[vote_index(z[r], nlev[r], v) for v in z0[r]]
+                    for r in range(R)])
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_wrapper_refuses_cpu_tensors_before_loading(monkeypatch):
