@@ -104,24 +104,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
     eighth ray) on a three-profile track with identical profiles and
     ``REFRAC 0``, against ``IP = 1`` (2e-3 / 0.1 of max|rad|, the JAX
     test's bars), through the turbo kernel;
-13. retrieval Jacobians -- the flagship with HYDZ 20 (the hydrostatic
-    rebuild in the graph): ``kernel_autodiff`` on the 130-element state
-    (T and the 4 gases' vmr at the 26 levels of 10-60 km) in float64 and
-    float32: wall time, packages, peak memory against the sizing
-    estimate, max|K|, and float32 held to float64 per quantity of its own
-    max|K| (``AD_F32_TOL``), the sizing estimate within 2x of the
-    measured peak in both dtypes, and how many packages the float64
-    Jacobian runs; the host cost of one operation under
-    ``jacfwd`` (``jvp_dispatch``); device launches and busy time
-    (CUDA-activity profiler) of the float32 pass and of the float64
-    package of the packages check below; the FD
-    ``retrieval.kernel`` on a 5-element state (T at 10-18 km) through
-    ``KERNEL = auto`` (n+1 turbo launches) and ``KERNEL = pallas`` (n+1
-    table launches), each held to those columns of the float64 autodiff
-    at the JAX package's bars (2e-2 of max|K| plus 0.05 relative); the
-    float64 autodiff on the card against the CPU on a small case (1e-10
-    of max|K|); the packages bit for bit: one package of every fourth ray
-    (271) against those rays' rows of the packaged 1084-ray run;
+13. retrieval Jacobians -- first the two tangent kernels of the
+    forward-mode Jacobian (``csrc/trace_rays_jvp.cu``,
+    ``csrc/ega_jvp_fast.cu``) against their plain versions
+    (``geometry.trace_rays_jvp_ref``, ``forward.rt_integrate_jvp_ref``)
+    on the same CUDA tensors in float64 and float32, on a small limb scan
+    in each tracer branch (9 tangents; 40 as well on the plain scan), a
+    ground-hitting scan with the brightness conversion and every 30th
+    flagship ray with the main path's own 130 tangents (the block
+    shapes and kernel instantiations the flagship runs): the tracer
+    tangent kernel's LOS bit for bit the tracer kernel's, each tangent
+    field and drad
+    within 1e-10 (float64) / 1e-3 (float32) of its max|tangent|; then the
+    flagship with HYDZ 20 (the hydrostatic rebuild in the seed):
+    ``kernel_autodiff`` on the 130-element state (T and the 4 gases' vmr
+    at the 26 levels of 10-60 km) through the tangent kernels (the main
+    path: the launch counts set to 0 just before and read just after,
+    each kernel once per package, no other kernel) in float64 and
+    float32 (profiled: device launches and busy time), wall time,
+    packages, peak memory against the sizing estimate (within 2x); the
+    float64 K against ``kernel_autodiff_jacfwd``'s (the
+    ``torch.func.jacfwd`` route, float64) per quantity within 1e-9 of its
+    max|K|, the float32 K against that at ``AD_F32_TOL``; the jacfwd
+    route in float32 on every fourth ray under the profiler (its
+    launches and busy time); the host cost of one operation under
+    ``jacfwd`` (``jvp_dispatch``); the FD ``retrieval.kernel`` on a
+    5-element state (T at 10-18 km) through ``KERNEL = auto`` (n+1 turbo
+    launches) and ``KERNEL = pallas`` (n+1 table launches), each held to
+    those columns of the float64 autodiff at the JAX package's bars (2e-2
+    of max|K| plus 0.05 relative); the float64 autodiff on the card
+    against the CPU's plain tangent chain on a small case (1e-10 of
+    max|K|); the packages bit for bit: one package of every fourth ray
+    (271) against those rays' rows of the 1084-ray run; each tangent
+    kernel's time alone at the flagship (float64 and float32), its plain
+    version's (float64) and its bound;
 14. multi-GPU (torch.distributed) -- ``parallel.ShardedForwardModel`` at
     the full flagship: on an NCCL group of one process (a 1 x 1 mesh) in
     ``KERNEL = auto`` and ``pallas``, bit for bit plain ``formod``, the
@@ -198,6 +214,15 @@ FD_ATOL, FD_RTOL = 2e-2, 0.05
 AD_F32_TOL = {"TEMPERATURE": 0.1, "CO2": 0.3, "H2O": 0.1, "O3": 0.1,
               "F11": 0.1}
 AD_CARD_CPU_TOL = 1e-10  # float64 card vs CPU, of max|K| (as the formod)
+# the tangent kernels against their plain versions, of each field's
+# max|tangent|: float64 at 1e-10; float32 at 1e-3 (the kernels write the
+# partials in another order than the plain versions, e.g. eip's slope in
+# the lower level as p (1 - w) / pa, not exp(.) (1 - w), and float32
+# rounds the two apart: ~1e-5 of max|tangent| on the H100)
+AD_KERNEL_TOL = {"float64": 1e-10, "float32": 1e-3}
+AD_JACFWD_TOL = 1e-9     # float64 K, kernels vs jacfwd, of each quantity's
+AD_JVP_CASE_N = 9        # tangents of the small kernel-vs-plain cases
+AD_JVP_WIDE_N = 40       # and of the small limb scan at two chunks of 32
 # flagship cells (pressure index, temperature index) of gas 0, channel 2
 # that the limb scan reads on ~10,000 segments each; roughening them gives
 # the hybrid tainted lanes to re-evaluate
@@ -208,6 +233,8 @@ ROUGH_GAS, ROUGH_CHANNEL, ROUGH_SEED = 0, 2, 7
 # the tensor cores and HBM3.  The bounds below divide by these.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# float64 outside the tensor cores (the same data sheet)
+PEAK_FP64_FLOPS = 34e12
 # Float32 operations per unit of work of the fused EGA kernels, counted
 # from the sources (csrc/ega_*.cu), a transcendental as one operation:
 #   turbo corner: two 9-term Clenshaw recurrences (2 x 28), the clips,
@@ -236,6 +263,28 @@ TRACE_TP_TOL = 1e-3      # tangent points, kernel vs plain version, km / deg
 OPS_TURBO_CORNER = 108
 OPS_PER_GAS = {"turbo": 48, "table": 40}
 OPS_PER_SEGMENT = 78
+# Float operations of the tangent kernels (csrc/trace_rays_jvp.cu,
+# csrc/ega_jvp_fast.cu) per tangent, counted from the sources, a
+# transcendental, compare or select as one operation, the primal's as
+# above (the tracer's once a ray, not once a warp):
+#   tracer, per step: step length (18), p and t at z (10), refraction's
+#     midpoint and offset altitudes (29), their p, t and refractivity
+#     (70), gradient and direction (27), normalisation (14), advance and
+#     state (18), the trapezoid (3) -> 190; per gas or window and step: q
+#     or k by its slope (7); per gas and step: u (12)
+#   RT, per valid segment and channel: a corner's searches, slopes and
+#     clamps (43 + 10), a gas's bilinear weights, guards and partials
+#     (47), continua with partials and the source slope (110); per
+#     tangent: the extinction's tangent (13), per gas the factor's and
+#     the running product's (14), emissivity, rad and tau (17)
+OPS_TRACE_JVP_STEP = 190
+OPS_TRACE_JVP_FIELD = 7
+OPS_TRACE_JVP_GAS = 12
+OPS_RT_JVP_CORNER = 53
+OPS_RT_JVP_GAS = 47
+OPS_RT_JVP_SEGMENT = 110
+OPS_RT_JVP_TAN = 30
+OPS_RT_JVP_TAN_GAS = 14
 
 
 def roughen(ft):
@@ -949,8 +998,9 @@ def profiled_call(torch, fn, names: bool = False):
     activity only (recording the host's operators too slows a
     launch-bound pass ten times over).  Busy is the union of the device
     activities' intervals (``busy_ms``); the profiler must have recorded
-    every launch of the hand-written kernels (the fused kernels and the
-    tracer), whose time by CUDA events recorded around each launch in the
+    every launch of the hand-written kernels (the fused kernels, the
+    tracer, the tangent kernels: two for each launch of the RT tangent
+    entry), whose time by CUDA events recorded around each launch in the
     same call (``ega_fused.LAUNCH_EVENTS``) is printed beside its
     own."""
     from torch.profiler import ProfilerActivity, profile
@@ -965,15 +1015,24 @@ def profiled_call(torch, fn, names: bool = False):
     wall = time.perf_counter() - t0
     events, ega_fused.LAUNCH_EVENTS = ega_fused.LAUNCH_EVENTS, None
     ks = device_events(prof)
-    hand = [k[1] for k in ks
-            if "ega_fused_kernel" in k[0] or "trace_rays_kernel" in k[0]]
+    kinds = ("ega_fused_kernel", "trace_rays_kernel", "trace_rays_jvp_kernel",
+             "ega_rec_kernel", "ega_tan_kernel")
+    hand = [k[1] for k in ks if any(name in k[0] for name in kinds)]
+    by_kind = {name: sum(k[1] for k in ks if name in k[0]) / 1e6
+               for name in kinds}
+    # device kernels of one launch of each entry point (the RT tangent
+    # entry runs its record and its tangent kernel)
+    want = sum(2 if name == "jt_ega_jvp_fast" else 1 for name, _, _ in events)
     hand_ms = sum(a.elapsed_time(b) for _, a, b in events)
     busy, n = busy_ms(ks), len(ks)
     if events:
-        print(f"  hand-written kernels: {len(events)} launch(es), "
-              f"{hand_ms:.2f} ms by CUDA events; the profiler recorded "
-              f"{len(hand)} of them ({sum(hand) / 1e6:.2f} ms)", flush=True)
-    if len(hand) != len(events):
+        print(f"  hand-written kernels: {len(events)} launch(es) of "
+              f"{want} kernel(s), {hand_ms:.2f} ms by CUDA events; the "
+              f"profiler recorded {len(hand)} of them "
+              f"({sum(hand) / 1e6:.2f} ms: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in by_kind.items() if v)
+              + ")", flush=True)
+    if len(hand) != want:
         fail("the profiler missed launches of the hand-written kernels")
     if not ks or busy <= 0:
         fail("the profiler recorded no device time")
@@ -1180,18 +1239,35 @@ def fd_vs_ad(K_fd, K_ad, label: str) -> float:
     return excess
 
 
+def jvp_launches(reset: bool = False) -> tuple:
+    """(tracer tangent, RT tangent, tracer, turbo, table) launch counts,
+    set to 0 first where ``reset``."""
+    from jurassic_torch.ops import ega_fused, ega_jvp, trace, trace_jvp
+    mods = ((trace_jvp, "LAUNCHES"), (ega_jvp, "LAUNCHES"),
+            (trace, "LAUNCHES"), (ega_fused, "LAUNCHES"),
+            (ega_fused, "LAUNCHES_TABLE"))
+    if reset:
+        for m, k in mods:
+            setattr(m, k, 0)
+    return tuple(getattr(m, k) for m, k in mods)
+
+
 def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
-                 raypack: int = 0, rows=None, profiled: bool = True):
-    """``kernel_autodiff`` on the full flagship retrieval state (the rays
-    ``rows`` of the scan, default all), under the CUDA-activity profiler
-    where ``profiled``: returns (K, rays, packages) after printing wall
-    time, launches, busy time, packages and the peak memory against the
-    sizing estimate."""
+                 raypack: int = 0, rows=None, profiled: bool = True,
+                 jacfwd: bool = False):
+    """``kernel_autodiff`` (``jacfwd``: ``kernel_autodiff_jacfwd``) on the
+    full flagship retrieval state (the rays ``rows`` of the scan, default
+    all), under the CUDA-activity profiler where ``profiled``: returns
+    (K, rays, packages, launches of ``jvp_launches``, wall s) after
+    printing wall time, launches, busy time, packages and the peak memory
+    against the sizing estimate.  The launch counts are set to 0 just
+    before the call and read just after it."""
     import numpy as np
     from jurassic_torch.forward import _obs_rows
     from jurassic_torch.retrieval import (atm2x, autodiff_package_size,
                                           autodiff_ray_bytes,
-                                          kernel_autodiff)
+                                          kernel_autodiff,
+                                          kernel_autodiff_jacfwd)
     ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
     ctl.raypack = raypack
     if rows is not None:
@@ -1200,12 +1276,14 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
     n = atm2x(ctl, atm)[0].size
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    pack = autodiff_package_size(m, obs.nr, n) or obs.nr
+    pack = autodiff_package_size(m, obs.nr, n, jacfwd) or obs.nr
     npk = -(-obs.nr // pack)
-    est = autodiff_ray_bytes(m, n) * pack
+    est = autodiff_ray_bytes(m, n, jacfwd) * pack
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
-    run = lambda: kernel_autodiff(ctl, atm.copy(), obs.copy(), m)
+    fn = kernel_autodiff_jacfwd if jacfwd else kernel_autodiff
+    run = lambda: fn(ctl, atm.copy(), obs.copy(), m)
+    jvp_launches(reset=True)
     if profiled:
         K, wall, launches, busy = profiled_call(torch, run)
         on = (f"wall (CUDA-activity profiler on), {launches} device kernel "
@@ -1215,20 +1293,239 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
         K = run()
         torch.cuda.synchronize()
         wall, on = time.perf_counter() - t0, "wall"
+    counts = jvp_launches()
     peak = torch.cuda.max_memory_allocated(dev) - base
     scale = float(np.abs(K).max())
     print(f"{label}: {obs.nr} rays x {ctl.nd} channels, n = {n}, "
-          f"{str(dtype)[6:]}: {wall:.1f} s {on}; {npk} package(s) of "
+          f"{str(dtype)[6:]}: {wall:.3f} s {on}; {npk} package(s) of "
           f"{pack} rays; peak "
           f"{peak / 1e9:.2f} GB against the estimate {est / 1e9:.2f} GB "
-          f"({est / max(peak, 1):.2f} x); max|K| {scale:.4e}", flush=True)
+          f"({est / max(peak, 1):.2f} x); max|K| {scale:.4e}; launches "
+          f"(tracer tangent, RT tangent, tracer, turbo, table) {counts}",
+          flush=True)
     if not (K.shape == (obs.nr * ctl.nd, n) and np.isfinite(K).all()
             and scale > 0):
         fail(f"{label}: the Jacobian is malformed")
     if not peak / AD_EST_RATIO <= est <= AD_EST_RATIO * peak:
         fail(f"{label}: the sizing estimate is not within {AD_EST_RATIO}x "
              "of the measured peak")
-    return K, obs.nr, npk
+    want = (0, 0, 0, 0, 0) if jacfwd else (npk, npk, 0, 0, 0)
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    return K, obs.nr, npk, counts, wall
+
+
+def jvp_case_inputs(torch, ForwardModel, ctl, ft, atm, obs, dev, dtype,
+                    n: int, seed: int = 0):
+    """(model, profiles, profile tangents, geometry) of a kernel-vs-plain
+    case: the eager fast model in ``dtype`` on the card and n random
+    profile tangents at the atm points, each field at its own scale."""
+    import numpy as np
+    from jurassic_torch.geometry import (ProfileTangents,
+                                         build_ray_profiles,
+                                         hydrostatic_atm,
+                                         ray_window_indices)
+    ctl.usetpu, ctl.kernel = 1, "jax"
+    hydrostatic_atm(ctl, atm)
+    m = ForwardModel(ctl, fast_tables=ft, device=dev, dtype=dtype)
+    prof = build_ray_profiles(ctl, atm, obs, dtype, dev)
+    gi = torch.from_numpy(ray_window_indices(atm, obs)[2]).to(dev)
+    G, W = ctl.ng, ctl.nw
+    d = np.random.default_rng(seed).standard_normal(
+        (atm.npts, 2 + G + W, n))
+    d[:, 0] *= np.abs(atm.p).max() * 1e-2
+    d[:, 2:2 + G] *= np.abs(atm.q).max() * 1e-2
+    return (m, prof, ProfileTangents(torch.from_numpy(d).to(dev, dtype), gi),
+            m._obs_geo(obs))
+
+
+def rel_field_errs(torch, got: dict, ref: dict) -> dict:
+    """{field: largest |got - ref| of max|ref|} (absolute where ref is 0)."""
+    out = {}
+    for k, r in ref.items():
+        d = float((got[k] - r).abs().max()) if r.numel() else 0.0
+        sc = float(r.abs().max()) if r.numel() else 0.0
+        out[k] = d / sc if sc > 0 else d
+    return out
+
+
+def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
+    """The two tangent kernels against their plain versions on the same
+    CUDA tensors, float64 and float32: a small limb scan (37 rays, NLOS
+    120, 4 gases, 9 channels) as it is, with AD_JVP_CASE_N and
+    AD_JVP_WIDE_N random profile tangents, and with AD_JVP_CASE_N in each
+    branch of ``workloads.TRACE_BRANCHES`` and on a ground-hitting scan
+    with the brightness conversion; and every 30th ray of the flagship
+    retrieval (37 rays, 100 channels, its tables) with the main path's
+    own inputs, the seed's n = 130 tangents through ``package_tangents``:
+    the block shapes and kernel instantiations that the flagship
+    Jacobian runs.  The tracer tangent kernel's LOS bit for bit the
+    tracer kernel's; each LOS tangent field within AD_KERNEL_TOL of its
+    max; drad likewise.  Returns ({dtype: largest relative error},
+    largest absolute drad difference in float64)."""
+    from jurassic_torch.forward import _obs_rows, rt_integrate_jvp_ref
+    from jurassic_torch.geometry import (los_tangent_fields,
+                                         trace_rays_jvp_ref)
+    from jurassic_torch.ops.ega_jvp import rt_jvp_fast_cuda
+    from jurassic_torch.ops.trace import trace_rays_cuda
+    from jurassic_torch.ops.trace_jvp import trace_rays_jvp_cuda
+    from jurassic_torch.retrieval import autodiff_seed, package_tangents
+    from jurassic_torch.workloads import TRACE_BRANCHES, trace_branch
+
+    def small(br, n):
+        def inputs(dtype):
+            ctl, ft, atm, obs = small_limb(ng=4, nd=9, nr=37, nlos=120)
+            if br == "ground":
+                ctl.refrac, ctl.write_bbt = 0, 1
+                obs.vpz[::2] = -20.0
+            elif br:
+                trace_branch(br, ctl, atm, obs)
+            return (ctl, obs.nr, *jvp_case_inputs(
+                torch, ForwardModel, ctl, ft, atm, obs, dev, dtype, n))
+        return inputs
+
+    def flagship_30(dtype):
+        ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
+        m = ForwardModel(ctl, fast_tables=ft, device=dev, dtype=dtype)
+        obs = _obs_rows(obs, slice(0, None, 30))
+        return (ctl, obs.nr, m, *package_tangents(
+            ctl, atm, obs, m, autodiff_seed(ctl, atm, m)))
+
+    def cases():
+        yield "limb", small(None, AD_JVP_CASE_N)
+        yield f"limb/n{AD_JVP_WIDE_N}", small(None, AD_JVP_WIDE_N)
+        for br in TRACE_BRANCHES + ("ground",):
+            yield br, small(br, AD_JVP_CASE_N)
+        yield "flagship/30", flagship_30
+    worst = {"float64": 0.0, "float32": 0.0}
+    worst_abs = 0.0
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        for label, inputs in cases():
+            ctl, nr, m, prof, ptan, geo = inputs(dtype)
+            G, W = ctl.ng, ctl.nw
+            args = (prof, ptan, geo, ctl.rayds, ctl.raydz, bool(ctl.refrac),
+                    ctl.nlos)
+            los_k, tan_k, flag = trace_rays_jvp_cuda(*args)
+            los_t, _ = trace_rays_cuda(prof, geo, *args[3:])
+            los_r, tan_r = trace_rays_jvp_ref(ctl, prof, ptan, geo)
+            same, diffs = los_diffs(torch, los_k, los_t)
+            bitwise = same == nr and all(b for _, b in diffs.values())
+            errs = rel_field_errs(torch, los_tangent_fields(tan_k, G, W),
+                                  los_tangent_fields(tan_r, G, W))
+            e = m.eager_tables()
+            rt = (e.tbl, m.sr, m.st, m.nu, e.cc, e.window, los_k, tan_k,
+                  m.flags, m.ig_co2, m.ig_h2o, bool(ctl.write_bbt))
+            out_k, dr_k = rt_jvp_fast_cuda(*rt)
+            out_r, dr_r = rt_integrate_jvp_ref(*rt)
+            errs["drad"] = rel_field_errs(torch, {"d": dr_k},
+                                          {"d": dr_r})["d"]
+            e_rad = rel_field_errs(torch, {"r": out_k.rad},
+                                   {"r": out_r.rad})["r"]
+            worst[name] = max(worst[name], *errs.values())
+            if dtype == torch.float64:
+                worst_abs = max(worst_abs, float((dr_k - dr_r).abs().max()))
+            print(f"tangent kernels vs plain, {label}, {name}, n = "
+                  f"{ptan.d.shape[2]}: tracer LOS "
+                  f"bit for bit {bitwise}, flags {int(flag.sum())}; of "
+                  "max|tangent|: " + ", ".join(
+                      f"{k} {v:.1e}" for k, v in errs.items())
+                  + f"; rad {e_rad:.1e}", flush=True)
+            finite = bool(torch.isfinite(dr_k).all())
+            if not (bitwise and not flag.any() and finite
+                    and max(errs.values()) <= AD_KERNEL_TOL[name]):
+                fail(f"tangent kernels vs plain versions ({label}, {name})")
+    print(f"tangent kernels vs plain versions: largest {worst} of "
+          f"max|tangent| (bars {AD_KERNEL_TOL})", flush=True)
+    return worst, worst_abs
+
+
+def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
+    """At the flagship, n = 130, in ``dtype``: each tangent kernel's time
+    alone (CUDA events around each launch, median of 5, after a warm-up),
+    its plain version's (one run, float64 only: the plain RT pass takes
+    tens of GB in float32 and float64 alike), and its bound: each input
+    read once and each output written once over the HBM rate, the
+    operations (``OPS_TRACE_JVP_*``, ``OPS_RT_JVP_*``, the tracer's own
+    ``OPS_TRACE_*`` once a ray) over the dtype's peak.  Returns
+    {name: {ms, plain_ms, bound_ms, bound_by, ...}}."""
+    from jurassic_torch.forward import rt_integrate_jvp_ref
+    from jurassic_torch.geometry import trace_rays_jvp_ref
+    from jurassic_torch.ops.ega_jvp import rt_jvp_fast_cuda
+    from jurassic_torch.ops.trace_jvp import trace_rays_jvp_cuda
+    from jurassic_torch.retrieval import autodiff_seed, package_tangents
+    ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
+    m = ForwardModel(ctl, fast_tables=ft, device=dev, dtype=dtype)
+    seed = autodiff_seed(ctl, atm, m)
+    prof, ptan, geo = package_tangents(ctl, atm, obs, m, seed)
+    targs = (prof, ptan, geo, ctl.rayds, ctl.raydz, bool(ctl.refrac),
+             ctl.nlos)
+    los, tan, _ = trace_rays_jvp_cuda(*targs)
+    e = m.eager_tables()
+    rargs = (e.tbl, m.sr, m.st, m.nu, e.cc, e.window, los, tan, m.flags,
+             m.ig_co2, m.ig_h2o, bool(ctl.write_bbt))
+    ms_t = kernel_ms(torch, lambda: trace_rays_jvp_cuda(*targs),
+                     "jt_trace_rays_jvp", 5)
+    ms_r = kernel_ms(torch, lambda: rt_jvp_fast_cuda(*rargs),
+                     "jt_ega_jvp_fast", 5)
+    plain = {}
+    if dtype == torch.float64:
+        for key, fn in (("trace", lambda: trace_rays_jvp_ref(
+                ctl, prof, ptan, geo)),
+                        ("rt", lambda: rt_integrate_jvp_ref(*rargs))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            plain[key] = (time.perf_counter() - t0) * 1e3
+            del out
+            torch.cuda.empty_cache()
+    R, L = prof.z.shape
+    G, W, D, S = ctl.ng, ctl.nw, ctl.nd, ctl.nlos
+    n = ptan.d.shape[2]
+    b = prof.z.element_size()
+    peak = PEAK_FP64_FLOPS if dtype == torch.float64 else PEAK_FP32_FLOPS
+    n_active = int(los.valid.sum())
+
+    def bound(n_bytes, ops):
+        t_b, t_o = n_bytes / PEAK_HBM_BYTES, ops / peak
+        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else
+                "operations", n_bytes, ops)
+    # tracer: profiles, geometry, profile tangents and window indices in;
+    # the LOS, its tangents and the flag out
+    t_bytes = (sum(x.numel() * x.element_size() for x in (*prof[:8], *los,
+                                                          *tan))
+               + 6 * R * b + ptan.d.numel() * b + R * L * 4 + 4 * R)
+    t_ops = (R * S * (OPS_TRACE_STEP + OPS_TRACE_LEVEL * L
+                      + OPS_TRACE_GAS * G + OPS_TRACE_WINDOW * W)
+             + R * OPS_TRACE_RAY
+             + R * S * n * (OPS_TRACE_JVP_STEP + OPS_TRACE_JVP_FIELD
+                            * (G + W) + OPS_TRACE_JVP_GAS * G))
+    # RT: the LOS fields it reads, their tangents and the tables in; rad,
+    # tau and drad out; the work of the valid segments
+    r_bytes = (sum(x.numel() * x.element_size() for x in (
+        los.p, los.t, los.ds, los.q, los.k, los.u, los.valid, los.tsurf,
+        *tan, e.tbl.eps, e.tbl.log2_u0, e.tbl.p, e.tbl.t))
+        + 4 * (e.tbl.nu.numel() + e.tbl.nt.numel() + e.tbl.np_.numel())
+        + e.tbl.valid.numel() + m.sr.numel() * b
+        + (2 * R * D + R * D * n) * b)
+    r_ops = n_active * D * (4 * G * OPS_RT_JVP_CORNER + G * OPS_RT_JVP_GAS
+                            + OPS_RT_JVP_SEGMENT
+                            + n * (OPS_RT_JVP_TAN + G * OPS_RT_JVP_TAN_GAS))
+    out = {}
+    for key, name, ms, (b_ms, b_by, nb, ops) in (
+            ("trace", "trace_rays_jvp", ms_t, bound(t_bytes, t_ops)),
+            ("rt", "ega_jvp_fast", ms_r, bound(r_bytes, r_ops))):
+        out[name] = {"ms": ms, "plain_ms": plain.get(key),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nb, "operations": ops}
+        print(f"{name} at the flagship ({R} rays, {n_active} valid "
+              f"segments, n = {n}, {str(dtype)[6:]}): kernel {ms:.3f} ms "
+              f"(median of 5), plain version "
+              + (f"{plain[key]:.1f} ms" if key in plain else "not timed")
+              + f"; bound {b_ms:.3f} ms by {b_by} ({nb / 1e9:.2f} GB, "
+              f"{ops / 1e9:.1f} GFLOP)", flush=True)
+    return out
 
 
 def jvp_dispatch(torch, dev, n: int = 130, chain: int = 200) -> None:
@@ -1272,41 +1569,66 @@ def jvp_dispatch(torch, dev, n: int = 130, chain: int = 200) -> None:
           flush=True)
 
 
+def by_quantity(ctl, iqa, got, ref) -> dict:
+    """{quantity: largest |got - ref| in its columns of its max|ref|}."""
+    import numpy as np
+    from jurassic_torch.retrieval import idx2name
+    out = {}
+    for q in np.unique(iqa):
+        cols = iqa == q
+        sc = np.abs(ref[:, cols]).max()
+        out[idx2name(ctl, q)] = (float(np.abs(got[:, cols] - ref[:, cols])
+                                       .max() / sc) if sc > 0 else np.inf)
+    return out
+
+
 def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
                     tt, stats, dev):
-    """Phase 12: the 130-element autodiff in float64 and float32, the FD
-    Jacobian on the small state through both fused kernels against the
-    float64 autodiff's columns of that state, float64 card against CPU,
-    packages.  The profiler costs a pass as much again, so it records the
-    float32 pass (one package) and the float64 package of the
-    packages check, not the two-package float64 pass: a package launches
-    the same kernels whatever its ray count.  Returns the (turbo, table)
-    launches of the FD Jacobians."""
+    """Phase 13: the tangent kernels against their plain versions; the
+    130-element Jacobian through them (the main path) in float64 and
+    float32, the float64 one against the jacfwd route's, float32 against
+    that; the jacfwd route in float32 on every fourth ray (its launches
+    and busy time); the FD Jacobian on the small state through both fused
+    kernels against the float64 Jacobian's columns of that state, float64
+    card against CPU, packages; each tangent kernel's time, plain time
+    and bound at the flagship.  The profiler costs a pass as much again,
+    so it records the float32 passes.  Returns (the (turbo, table,
+    tracer) launches of the FD Jacobians, the tangent kernels' records)."""
     import numpy as np
     from jurassic_torch.ops import trace as ktrace
-    from jurassic_torch.retrieval import (IDXT, atm2x, idx2name, kernel,
-                                          kernel_autodiff)
-    K64, nr, npk = autodiff_run(torch, ForwardModel, flagship, dev,
-                                torch.float64, "flagship retrieval autodiff",
-                                profiled=False)
+    from jurassic_torch.retrieval import IDXT, atm2x, kernel, kernel_autodiff
+
+    worst, worst_abs = jvp_kernels_check(torch, ForwardModel, flagship,
+                                         small_limb, dev)
+    K64, nr, npk, counts64, wall64 = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float64,
+        "flagship retrieval autodiff (tangent kernels)", profiled=False)
     print(f"the float64 flagship Jacobian runs {npk} package(s) on this "
           "card", flush=True)
-    K32, _, _ = autodiff_run(torch, ForwardModel, flagship, dev,
-                             torch.float32, "flagship retrieval autodiff")
-    scale = np.abs(K64).max()
-    d32 = np.abs(K32 - K64)
-    print(f"float32 vs float64 autodiff: {d32.max() / scale:.3e} of max|K|;"
-          f" beyond 0.05 relative "
-          f"{float((d32 - 0.05 * np.abs(K64)).max() / scale):.3e}",
-          flush=True)
+    K32, _, _, counts32, _ = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float32,
+        "flagship retrieval autodiff (tangent kernels)")
+    Kj, _, npk_j, _, wall_j = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float64,
+        "flagship retrieval autodiff (jacfwd route)", profiled=False,
+        jacfwd=True)
     ctl, _, atm, _ = retrieval_ctl(flagship, "jax", "full")
     _, iqa, ipa = atm2x(ctl, atm)
-    errs = {}
-    for q in np.unique(iqa):
-        name, cols = idx2name(ctl, q), iqa == q
-        q_scale = np.abs(K64[:, cols]).max()
-        errs[name] = (float(d32[:, cols].max() / q_scale) if q_scale > 0
-                      else np.inf)
+    e_j = by_quantity(ctl, iqa, K64, Kj)
+    print("float64 tangent kernels vs the jacfwd route, by quantity, of its "
+          f"own max|K| (bar {AD_JACFWD_TOL}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in e_j.items())
+          + f"; {wall_j:.1f} s against {wall64:.3f} s", flush=True)
+    if not all(v <= AD_JACFWD_TOL for v in e_j.values()):
+        fail("the float64 Jacobian through the tangent kernels is not the "
+             "jacfwd route's")
+    scale = np.abs(Kj).max()
+    d32 = np.abs(K32 - Kj)
+    print(f"float32 (tangent kernels) vs float64 (jacfwd route): "
+          f"{d32.max() / scale:.3e} of max|K|; beyond 0.05 relative "
+          f"{float((d32 - 0.05 * np.abs(Kj)).max() / scale):.3e}",
+          flush=True)
+    errs = by_quantity(ctl, iqa, K32, Kj)
     print("  by quantity, of its own max|K| (bar): " + ", ".join(
         f"{name} {e:.3e} ({AD_F32_TOL.get(name)})"
         for name, e in errs.items()), flush=True)
@@ -1314,6 +1636,18 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
             not e <= AD_F32_TOL[name] for name, e in errs.items()):
         fail("the float32 autodiff Jacobian misses its bar")
     del K32, d32
+    # the jacfwd route in float32 on every fourth ray, profiled: what the
+    # tangent kernels replace
+    rows4 = slice(None, None, 4)
+    K4, nr4, _, _, _ = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float32,
+        "flagship autodiff, every fourth ray (jacfwd route)", rows=rows4,
+        jacfwd=True)
+    ref4 = Kj.reshape(nr, -1, Kj.shape[1])[rows4].reshape(K4.shape)
+    e4 = by_quantity(ctl, iqa, K4, ref4)
+    print("  float32 jacfwd route vs float64, every fourth ray: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in e4.items()), flush=True)
+    del Kj, K4, ref4
     jvp_dispatch(torch, dev)
 
     # FD on the small state, held to those columns of the float64
@@ -1361,26 +1695,47 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
               f"{ctl.nlos}) on {d}: {time.perf_counter() - t0:.1f} s",
               flush=True)
     e_dev = float(np.abs(Ks[1] - Ks[0]).max() / np.abs(Ks[0]).max())
-    print(f"float64 autodiff card vs CPU: {e_dev:.3e} of max|K| (bar "
-          f"{AD_CARD_CPU_TOL})", flush=True)
+    print(f"float64 autodiff card (tangent kernels) vs CPU (plain "
+          f"versions): {e_dev:.3e} of max|K| (bar {AD_CARD_CPU_TOL})",
+          flush=True)
     if not e_dev <= AD_CARD_CPU_TOL:
         fail("the float64 autodiff differs between card and CPU")
 
     # packages: every fourth ray as one package (or, where the 1084-ray
     # run was one package, in packages of 91) against those rays' rows
-    rows = slice(None, None, 4)
-    K_cut, nr_cut, npk_cut = autodiff_run(
+    K_cut, nr_cut, npk_cut, _, _ = autodiff_run(
         torch, ForwardModel, flagship, dev, torch.float64,
-        "flagship autodiff, every fourth ray",
-        raypack=-1 if npk > 1 else 91, rows=rows)
-    ref = K64.reshape(nr, -1, K64.shape[1])[rows].reshape(K_cut.shape)
+        "flagship autodiff, every fourth ray (tangent kernels)",
+        raypack=-1 if npk > 1 else 91, rows=rows4)
+    ref = K64.reshape(nr, -1, K64.shape[1])[rows4].reshape(K_cut.shape)
     same = np.array_equal(K_cut, ref)
     print(f"packages: {npk} package(s) for {nr} rays, {npk_cut} for the "
           f"{nr_cut} rays: their rows bit for bit {same}", flush=True)
     if not (same and (npk > 1 or npk_cut > 1)):
         fail("packaged and one-package Jacobian rows differ")
+    del K64, K_cut, ref
+    torch.cuda.empty_cache()
+
+    # each tangent kernel at the flagship, float64 and float32
+    rec = jvp_timing(torch, ForwardModel, flagship, dev, torch.float64)
+    rec32 = jvp_timing(torch, ForwardModel, flagship, dev, torch.float32)
+    for i, name in enumerate(("trace_rays_jvp", "ega_jvp_fast")):
+        rec[name].update(
+            launches=counts64[i],
+            launches_on=f"flagship kernel_autodiff, n = 130, float64, "
+                        f"{npk} package(s)",
+            launches_f32=counts32[i], max_abs_err=worst_abs,
+            max_abs_err_of="largest |drad| difference, the RT tangent "
+                           "kernel on the tracer tangent kernel's LOS against "
+                           "the plain versions, float64, the small "
+                           "cases and every 30th flagship ray at n = 130",
+            max_rel_err=worst,
+            ms_of="the kernel alone at the flagship in float64, CUDA "
+                  "events around each launch",
+            ms_f32=rec32[name]["ms"], bound_ms_f32=rec32[name]["bound_ms"],
+            bound_by_f32=rec32[name]["bound_by"])
     return (fd_launches["auto"][0], fd_launches["pallas"][1],
-            fd_launches["auto"][2])
+            fd_launches["auto"][2]), rec
 
 
 def mgpu_rank(rank: int, port: int, ref_file: str, out_dir: str) -> None:
@@ -1901,7 +2256,7 @@ def main() -> None:
     phase("retrieval Jacobians")
     del fm, fm_p, fm_h, fm_rp, los, common, args, args_t, args_h
     torch.cuda.empty_cache()
-    fd_turbo, fd_table, fd_trace = retrieval_phase(
+    (fd_turbo, fd_table, fd_trace), jvp_rec = retrieval_phase(
         torch, ega_fused, ForwardModel, flagship, small_limb, tt, stats, dev)
 
     phase("multi-GPU (torch.distributed)")
@@ -1967,6 +2322,10 @@ def main() -> None:
          "jacobian_launches": fd_trace,
          "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
                                  "auto, n = 5 (6 formods)"},
+        *({"name": name, "route": "cuda", "library_ms": None,
+           "source": f"jurassic_torch/csrc/{name}.cu",
+           "replaces": "jurassic_tpu/retrieval.py:281", **r}
+          for name, r in jvp_rec.items()),
         *probe_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,15 +45,16 @@ import torch
 from .config import NFOV, Ctl
 from .constants import C1, C2, KB, TAU_CUTOFF
 from .device import RT_DTYPE, resolve_device, tracer_dtype
-from .geometry import (LosData, build_ray_profiles, check_entry_flag,
-                       hydrostatic_atm, trace_rays_deferred)
+from .geometry import (LosData, LosTangents, build_ray_profiles,
+                       check_entry_flag, hydrostatic_atm, los_tangent_fields,
+                       trace_rays_deferred)
 from .interp_atm import intpol_atm_geo, split_profiles
 from .io_tab import Atm, Obs, read_shape
-from .ops.continua import (ContinuaCoeffs, beta_ds, continua_to_device,
-                           precompute_continua)
+from .ops.continua import (ContinuaCoeffs, beta_ds, beta_ds_partials,
+                           continua_to_device, precompute_continua)
 from .ops.ega import (EgaDeviceTables, FastDeviceTables, ega_eps_exact,
-                      ega_eps_fast, ega_tables_to_device,
-                      fast_tables_to_device)
+                      ega_eps_fast, ega_eps_fast_partials,
+                      ega_tables_to_device, fast_tables_to_device)
 from .ops.ega_fused import (N_SEG, pack_continua, rt_fused_table,
                             rt_fused_turbo)
 from .ops.table_pack import TableTables, build_table_tables
@@ -86,6 +87,14 @@ def src_planck(sr, st, t):
     it = ((4.0 * t).to(torch.int32) - 400).clamp(0, n - 2).long()
     t0, t1 = st[it].unsqueeze(1), st[it + 1].unsqueeze(1)
     return sr[it] + (t.unsqueeze(1) - t0) * (sr[it + 1] - sr[it]) / (t1 - t0)
+
+
+def src_planck_slope(sr, st, t):
+    """d src_planck / dt [R, D]: the slope of the table row the
+    interpolation reads (its index is piecewise constant in t)."""
+    n = st.shape[0]
+    it = ((4.0 * t).to(torch.int32) - 400).clamp(0, n - 2).long()
+    return (sr[it + 1] - sr[it]) / (st[it + 1] - st[it]).unsqueeze(1)
 
 
 def brightness(rad, nu):
@@ -183,6 +192,97 @@ def rt_integrate(tbl, sr, st, nu, cc, window, los: LosData, tsurf, flags,
         rad = torch.where(upd, rad + src * eps * tau, rad)
         tau = torch.where(upd, tau * (1.0 - eps), tau)
     return _surface_and_bbt(rad, tau, sr, st, nu, tsurf, bbt)
+
+
+def rt_integrate_jvp_ref(tbl: FastDeviceTables, sr, st, nu, cc, window,
+                         los: LosData, tan: LosTangents, flags, ig_co2: int,
+                         ig_h2o: int, bbt: bool):
+    """(RtOut, drad [R, D, n]): :func:`rt_integrate` with ``use_fast`` on
+    ``los`` (its result bit for bit) and its forward-mode tangent in the n
+    directions of ``tan`` (``geometry.trace_rays_jvp``), surface and
+    brightness epilogue included -- the plain version of the RT JVP
+    kernel (``csrc/ega_jvp_fast.cu``).
+
+    Each (segment, channel) takes its local partials once
+    (``ops.ega.ega_eps_fast_partials``, ``ops.continua.
+    beta_ds_partials``, :func:`src_planck_slope`); the tangents then
+    follow small linear updates of (rad, tau, tau_path[G]).  An invalid
+    segment changes nothing, and its tangents do not reach the result
+    (``torch.where`` takes the selected side's tangent)."""
+    dtype = los.p.dtype
+    R, S = los.ds.shape
+    G, W = los.u.shape[2], los.k.shape[2]
+    D = sr.shape[1]
+    dev = los.p.device
+    nt = tan.seg.shape[-1]
+    F = los_tangent_fields(tan, G, W)
+    sr_, st_ = sr.to(dtype), st.to(dtype)
+    rad = torch.zeros((R, D), dtype=dtype, device=dev)
+    tau = torch.ones((R, D), dtype=dtype, device=dev)
+    tau_path = torch.ones((R, G, D), dtype=dtype, device=dev)
+    drad = torch.zeros((R, D, nt), dtype=dtype, device=dev)
+    dtau = torch.zeros_like(drad)
+    dtp = torch.zeros((R, G, D, nt), dtype=dtype, device=dev)
+    zq = torch.zeros((R,), dtype=dtype, device=dev)
+    zt = torch.zeros((R, nt), dtype=dtype, device=dev)
+    e = lambda a: a.unsqueeze(-1)                  # a tangent axis
+    for s in range(S):
+        p, t, ds = los.p[:, s], los.t[:, s], los.ds[:, s]
+        q, u, valid = los.q[:, s], los.u[:, s], los.valid[:, s]
+        kw = los.k[:, s][:, window]
+        q_h2o = q[:, ig_h2o] if ig_h2o >= 0 else zq
+        u_h2o = u[:, ig_h2o] if ig_h2o >= 0 else zq
+        u_co2 = u[:, ig_co2] if ig_co2 >= 0 else zq
+        bds, b = beta_ds_partials(flags, cc, kw, ds[:, None], p[:, None],
+                                  t[:, None], q_h2o[:, None],
+                                  u_co2[:, None], u_h2o[:, None])
+        factor, f_tp, f_t, f_p, f_u = ega_eps_fast_partials(tbl, tau_path,
+                                                            t, u, p)
+        # the segment's tangents [R, n] ([R, G, n] per gas, [R, D, n] k)
+        dp, dt, dds = F["p"][:, s], F["t"][:, s], F["ds"][:, s]
+        dq, du = F["q"][:, s], F["u"][:, s]
+        dk = F["k"][:, s][:, window]
+        dq_h2o = dq[:, ig_h2o] if ig_h2o >= 0 else zt
+        du_h2o = du[:, ig_h2o] if ig_h2o >= 0 else zt
+        du_co2 = du[:, ig_co2] if ig_co2 >= 0 else zt
+        dbds = e(b[0]) * dk
+        for bi, d in zip(b[1:], (dds, dp, dt, dq_h2o, du_co2, du_h2o)):
+            dbds = dbds + e(bi) * d.unsqueeze(1)
+        df = (e(f_tp) * dtp + e(f_t) * dt[:, None, None]
+              + e(f_p) * dp[:, None, None] + e(f_u) * du.unsqueeze(2))
+        tau_gas, dtg = factor[:, 0], df[:, 0]
+        for g in range(1, G):
+            dtg = dtg * e(factor[:, g]) + e(tau_gas) * df[:, g]
+            tau_gas = tau_gas * factor[:, g]
+        v = valid.view(R, 1, 1)
+        dtp = torch.where(e(v), dtp * e(factor) + e(tau_path) * df, dtp)
+        tau_path = torch.where(v, tau_path * factor, tau_path)
+        src = src_planck(sr_, st_, t)
+        dsrc = e(src_planck_slope(sr_, st_, t)) * dt.unsqueeze(1)
+        ex = torch.exp(-bds)
+        eps = 1.0 - tau_gas * ex
+        deps = e(tau_gas * ex) * dbds - dtg * e(ex)
+        upd = valid[:, None] & (tau_gas > TAU_CUTOFF)
+        drad = torch.where(e(upd), drad + (dsrc * e(eps) + e(src) * deps)
+                           * e(tau) + e(src * eps) * dtau, drad)
+        dtau = torch.where(e(upd), dtau * e(1.0 - eps) - e(tau) * deps,
+                           dtau)
+        rad = torch.where(upd, rad + src * eps * tau, rad)
+        tau = torch.where(upd, tau * (1.0 - eps), tau)
+    # surface emission and the brightness conversion (_surface_and_bbt)
+    ts = los.tsurf
+    src_s = src_planck(sr_, st_, ts)
+    dsrc_s = e(src_planck_slope(sr_, st_, ts)) * F["tsurf"].unsqueeze(1)
+    hit = e((ts > 0.0).unsqueeze(1))
+    drad = torch.where(hit, drad + dsrc_s * e(tau) + e(src_s) * dtau, drad)
+    out = _surface_and_bbt(rad, tau, sr, st, nu, ts, bbt)
+    if bbt:
+        r = torch.where(hit[..., 0], rad + src_s * tau, rad)
+        nu_ = nu.to(dtype)
+        a = C1 * nu_ ** 3 / r
+        lg = torch.log1p(a)
+        drad = drad * e(C2 * nu_ * a / (r * (1.0 + a) * lg * lg))
+    return out, drad
 
 
 # ---------------------------------------------------------------------------
@@ -775,6 +875,29 @@ class ForwardModel:
         return rt_integrate(e.tbl, self.sr, self.st, self.nu, e.cc, e.window,
                             los, los.tsurf, self.flags, self.ig_co2,
                             self.ig_h2o, e.use_fast, bool(self.ctl.write_bbt))
+
+    def integrate_jvp(self, los: LosData, tan: LosTangents):
+        """(RtOut, drad [R, D, n]): the eager fast pass of
+        :meth:`integrate_eager` on ``los`` and its tangent in the
+        directions of ``tan`` (``geometry.trace_rays_jvp``).  CPU tensors
+        run the plain version :func:`rt_integrate_jvp_ref`; CUDA tensors
+        launch the RT JVP kernel (``ops.ega_jvp``) or raise.  The exact
+        tables have no tangent kernel (``retrieval.
+        kernel_autodiff_jacfwd``)."""
+        e = self.eager_tables()
+        if not e.use_fast:
+            raise ValueError("KERNEL = exact: the RT tangent runs on the "
+                             "fast tables only (kernel_autodiff_jacfwd)")
+        args = (e.tbl, self.sr, self.st, self.nu, e.cc, e.window, los, tan,
+                self.flags, self.ig_co2, self.ig_h2o,
+                bool(self.ctl.write_bbt))
+        dev = los.p.device
+        if dev.type == "cpu":
+            return rt_integrate_jvp_ref(*args)
+        if dev.type != "cuda":
+            raise ValueError(f"integrate_jvp: unsupported device {dev}")
+        from .ops.ega_jvp import rt_jvp_fast_cuda
+        return rt_jvp_fast_cuda(*args)
 
     def _epilogue(self, rad, tau, los) -> RtOut:
         return rt_epilogue(rad, tau, self.sr, self.st, self.nu, los.tsurf,

@@ -474,9 +474,20 @@ def trace_rays_ref(ctl: Ctl, prof: RayProfiles, obs_geo: dict) -> LosData:
         pz, plon, plat = z, lon, lat
 
     st = {k: torch.stack(v, dim=1) for k, v in outs.items()}
+    return _finish_los(st, ok, tsurf, z_low_idx, og)[0]
+
+
+def _finish_los(st: dict, ok, tsurf, z_low_idx, og: dict):
+    """(LosData, corr_at, corr_idx) from the stacked per-step records
+    ``st`` of the step loop: the ds correction, the tangent point, the
+    trapezoid rule and the column densities.  ``corr_at`` [R, NLOS] marks
+    the point whose ds took the escape correction, ``corr_idx`` [R] the
+    step that recorded it (for the tangents of
+    :func:`trace_rays_jvp_ref`)."""
     valid = st["valid"]
+    R, nlos = valid.shape
     np_ = valid.sum(dim=1, dtype=torch.int32)
-    iota = torch.arange(nlos, device=dev)
+    iota = torch.arange(nlos, device=valid.device)
 
     # escape segment-length correction of the point before the boundary
     # point (los[np-1].ds = ds*frac, jr_common.h:646); at most one per ray
@@ -487,8 +498,9 @@ def trace_rays_ref(ctl: Ctl, prof: RayProfiles, obs_geo: dict) -> LosData:
     any_corr = has_corr.any(dim=1)
     corr_val = torch.gather(corr, 1, corr_idx.clamp(max=nlos - 1)
                             .unsqueeze(1))[:, 0]
-    ds = torch.where(any_corr.unsqueeze(1)
-                     & (iota.unsqueeze(0) == (corr_idx - 1).unsqueeze(1)),
+    corr_at = any_corr.unsqueeze(1) \
+        & (iota.unsqueeze(0) == (corr_idx - 1).unsqueeze(1))
+    ds = torch.where(corr_at,
                      torch.where(any_corr, corr_val, 0.0).unsqueeze(1), ds)
 
     # tangent point from the pre-trapezoid segment lengths
@@ -509,11 +521,350 @@ def trace_rays_ref(ctl: Ctl, prof: RayProfiles, obs_geo: dict) -> LosData:
     u = (10.0 * st["q"] * p.unsqueeze(2) / (KB * t.unsqueeze(2))
          * ds_trap.unsqueeze(2))
 
-    return LosData(
+    los = LosData(
         z=st["z"], lon=st["lon"], lat=st["lat"], p=p, t=t, q=st["q"],
         k=st["k"], ds=ds_trap, u=u, valid=valid, np_=np_,
         tsurf=torch.where(ok, tsurf, -999.0),
         tpz=tpz, tplon=tplon, tplat=tplat)
+    return los, corr_at, corr_idx.clamp(max=nlos - 1)
+
+
+# ---------------------------------------------------------------------------
+# Forward-mode tangents of the tracer (retrieval.kernel_autodiff)
+
+class ProfileTangents(NamedTuple):
+    """Tangents of the rays' profiles in n directions of the state, kept
+    at the atm points: ray r's level l is atm point ``gi[r, l]``
+    (``ray_window_indices``), so rays that share a profile share its
+    tangents."""
+
+    d: torch.Tensor    # [N, 2 + G + W, n]: p, t, q[G], k[W] per atm point
+    gi: torch.Tensor   # [R, L] int64
+
+
+class LosTangents(NamedTuple):
+    """Tangents of the LOS fields the RT pass reads, n innermost
+    (:func:`los_tangent_fields` names the rows of ``seg``)."""
+
+    seg: torch.Tensor    # [R, NLOS, 3 + 2 G + W, n]: p, t, q, k, u, ds
+    tsurf: torch.Tensor  # [R, n]
+
+
+def los_tangent_fields(tan: LosTangents, G: int, W: int) -> dict:
+    """Views of ``tan`` by LOS field: p, t, ds [R, NLOS, n], q, u
+    [R, NLOS, G, n], k [R, NLOS, W, n] and tsurf [R, n]."""
+    s = tan.seg
+    return {"p": s[:, :, 0], "t": s[:, :, 1], "q": s[:, :, 2:2 + G],
+            "k": s[:, :, 2 + G:2 + G + W],
+            "u": s[:, :, 2 + G + W:2 + 2 * G + W],
+            "ds": s[:, :, 2 + 2 * G + W], "tsurf": tan.tsurf}
+
+
+def _dot3t(a, da):
+    """_dot3 of a [R, 3] with a tangent da [R, 3, n]: [R, n]."""
+    return a[:, 0, None] * da[:, 0] + a[:, 1, None] * da[:, 1] \
+        + a[:, 2, None] * da[:, 2]
+
+
+def _lin_partials(x0, y0, x1, y1, x):
+    """:func:`_lin` and its partials in y0, y1 and x."""
+    w = (x - x0) / (x1 - x0)
+    return _lin(x0, y0, x1, y1, x), 1.0 - w, w, (y1 - y0) / (x1 - x0)
+
+
+def _eip_partials(x0, y0, x1, y1, x):
+    """:func:`_eip` (the same operations) and its partials in y0, y1 and
+    x: with e = y0 exp(s (x - x0)), s = log(y1 / y0) / (x1 - x0) and
+    w = (x - x0) / (x1 - x0), they are exp(.) (1 - w), e w / y1 and e s;
+    the linear fallback's where it takes that."""
+    ok = (y0 > 0) & (y1 > 0)
+    y0s = torch.where(ok, y0, 1.0)
+    y1s = torch.where(ok, y1, 1.0)
+    s = torch.log(y1s / y0s) / (x1 - x0)
+    ee = torch.exp(s * (x - x0))
+    e = y0s * ee
+    v, a, b, c = _lin_partials(x0, y0, x1, y1, x)
+    return (torch.where(ok, e, v), torch.where(ok, ee * (1.0 - b), a),
+            torch.where(ok, e * b / y1s, b), torch.where(ok, e * s, c))
+
+
+def _take_tan(dP, i, short: bool):
+    """Per-ray profile tangents dP [R, L, F, n] at levels i [R, k]:
+    [R, k, F, n], zero below a one-level window's only level (as
+    :func:`_take_lo` reads 0 there)."""
+    R, k = i.shape
+    idx = i.clamp_min(0).view(R, k, 1, 1).expand(R, k, *dP.shape[2:])
+    v = torch.gather(dP, 1, idx)
+    return torch.where((i >= 0).view(R, k, 1, 1), v, 0.0) if short else v
+
+
+def _interp_partials(prof: RayProfiles, z0):
+    """The interval index i [R, k] of altitudes z0 [R, k], p (eip) and t
+    (lin) there with their partials in the lower and upper level's value
+    and in z0 (``interp_pt``'s operations): (i, (p, pa, pb, pz),
+    (t, ta, tb, tz), w, zb - za)."""
+    i = _interval_index(prof, z0)
+    za, zb = _take_lo(prof, prof.z, i), _take(prof.z, i + 1)
+    pp = _eip_partials(za, _take_lo(prof, prof.p, i), zb,
+                       _take(prof.p, i + 1), z0)
+    tt = _lin_partials(za, _take_lo(prof, prof.t, i), zb,
+                       _take(prof.t, i + 1), z0)
+    return i, pp, tt, za, zb
+
+
+def trace_rays_jvp(ctl: Ctl, prof: RayProfiles, ptan: ProfileTangents,
+                   obs_geo: dict):
+    """(LosData, LosTangents, flag): the rays of :func:`trace_rays` and
+    the tangents of the fields the RT pass reads, in the dtype and on the
+    device of ``prof``.  CPU tensors run the plain version
+    :func:`trace_rays_jvp_ref` (which raises where a bisection does not
+    converge; ``flag`` zeros); CUDA tensors launch the tracer JVP kernel
+    (``csrc/trace_rays_jvp.cu``, ``ops/trace_jvp.py``) or raise, and
+    ``flag`` [R] int32 marks a bisection that did not converge, for the
+    caller's pull (:func:`check_entry_flag`)."""
+    dev = prof.z.device
+    if dev.type == "cpu":
+        los, tan = trace_rays_jvp_ref(ctl, prof, ptan, obs_geo)
+        return los, tan, torch.zeros(prof.z.shape[0], dtype=torch.int32)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_rays_jvp: unsupported device {dev}")
+    from .ops.trace_jvp import trace_rays_jvp_cuda
+    return trace_rays_jvp_cuda(prof, ptan, obs_geo, float(ctl.rayds),
+                               float(ctl.raydz), bool(ctl.refrac),
+                               int(ctl.nlos))
+
+
+def trace_rays_jvp_ref(ctl: Ctl, prof: RayProfiles, ptan: ProfileTangents,
+                       obs_geo: dict):
+    """(LosData, LosTangents): the rays of :func:`trace_rays_ref`, bit for
+    bit, and the forward-mode tangents of the fields the RT pass reads in
+    the n directions of ``ptan``, in plain PyTorch batched over rays x
+    tangents -- the plain version of ``csrc/trace_rays_jvp.cu``, with
+    explicit tangent rules in its order.
+
+    z carries no tangent (it is never a state element), so neither do
+    zmin, zmax and the entry point.  With REFRAC 1 the refractivity
+    bends the ray and the step positions, altitudes and lengths carry
+    tangents; the interval indices are piecewise constant, so tangents
+    flow through the interpolation weights and through d(value)/dz dz.
+    The escape clip's xh = geo2cart(cart2geo(px)) is px, so its tangent
+    is px's.  Every step runs for every ray, stopped or not."""
+    dev, dt = prof.z.device, prof.z.dtype
+    R = prof.z.shape[0]
+    G = prof.q.shape[1]
+    nlos = int(ctl.nlos)
+    rayds, raydz = float(ctl.rayds), float(ctl.raydz)
+    refrac = bool(ctl.refrac)
+    og = {k: torch.as_tensor(v).to(dev, dt) for k, v in obs_geo.items()}
+    zmin, zmax = prof.zmin, prof.zmax
+    dP = ptan.d.to(dev, dt)[ptan.gi.to(dev)]            # [R, L, F, n]
+    nt = dP.shape[-1]
+
+    xobs = geo2cart(og["obsz"], og["obslon"], og["obslat"])
+    xvp = geo2cart(og["vpz"], og["vplon"], og["vplat"])
+    ex0 = xvp - xobs
+    norm = torch.sqrt(_dot3(ex0, ex0))
+    ex0 = ex0 / norm.unsqueeze(1)
+    ok = (og["obsz"] >= zmin) & (og["vpz"] <= zmax - 0.001)
+    x = torch.where((og["obsz"] > zmax).unsqueeze(1),
+                    _entry_point(xobs, ex0, norm, zmax), xobs)
+    ex = ex0
+    stopped = ~ok
+    tsurf = torch.full((R,), -999.0, dtype=dt, device=dev)
+    z_low = torch.full((R,), float("inf"), dtype=dt, device=dev)
+    z_low_idx = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    pz = torch.zeros(R, dtype=dt, device=dev)
+    plon = torch.zeros_like(pz)
+    plat = torch.zeros_like(pz)
+    nan = torch.tensor(float("nan"), dtype=dt, device=dev)
+    outs = {k: [] for k in ("z", "lon", "lat", "p", "t", "q", "k", "ds",
+                            "ds_corr", "valid")}
+    # tangents of the position, direction, last point and its altitude,
+    # and of tsurf, [R, 3, n] / [R, n]
+    dx = torch.zeros((R, 3, nt), dtype=dt, device=dev)
+    dex, dpx = dx, dx
+    dpz = torch.zeros((R, nt), dtype=dt, device=dev)
+    dtsurf = dpz
+    touts = {k: [] for k in ("p", "t", "q", "k", "ds", "ds_corr")}
+    col = lambda a: a.unsqueeze(1)                       # [R] -> [R, 1]
+
+    for ip in range(nlos):
+        # step length (jr_common.h:625-635)
+        ds = torch.full((R,), rayds, dtype=dt, device=dev)
+        dds = torch.zeros((R, nt), dtype=dt, device=dev)
+        radius = torch.sqrt(_dot3(x, x))
+        if raydz > 0.0:
+            norm_x = 1.0 / torch.sqrt(_dot3(x, x))
+            exx = _dot3(ex, x)
+            c = exx * norm_x
+            cosa = torch.abs(c)
+            inv = raydz / cosa
+            ds = torch.where(cosa != 0.0, torch.clamp(inv, max=rayds), ds)
+            dnorm = -col(norm_x * norm_x) * _dot3t(x, dx) / col(radius)
+            dc = (_dot3t(x, dex) + _dot3t(ex, dx)) * col(norm_x) \
+                + col(exx) * dnorm
+            rc = 1.0 / cosa
+            dds = torch.where(col((cosa != 0.0) & (inv <= rayds)),
+                              col(-raydz * rc * rc * torch.sign(c)) * dc, 0.0)
+        dz = _dot3t(x, dx) / col(radius)
+
+        z, lon, lat = cart2geo(x)
+
+        # escape clipping (jr_common.h:637-648)
+        below = z < zmin
+        escaped = below | (z > zmax)
+        xh = geo2cart(pz, plon, plat)
+        zfrac = torch.where(below, zmin, zmax)
+        same = z == pz
+        den = torch.where(same, 1.0, z - pz)
+        frac = (zfrac - pz) / den
+        xe = xh + frac.unsqueeze(1) * (x - xh)
+        ze, lone, late = cart2geo(xe)
+        ds_corr = torch.where(escaped, ds * frac, nan)
+        dden = torch.where(col(same), 0.0, dz - dpz)
+        dfrac = (-dpz - col(frac) * dden) / col(den)
+        dxe = dpx + dfrac.unsqueeze(1) * (x - xh).unsqueeze(2) \
+            + frac.view(R, 1, 1) * (dx - dpx)
+        dze = _dot3t(xe, dxe) / col(torch.sqrt(_dot3(xe, xe)))
+        dds_corr = dds * col(frac) + col(ds) * dfrac
+
+        x = torch.where(escaped.unsqueeze(1), xe, x)
+        z = torch.where(escaped, ze, z)
+        lon = torch.where(escaped, lone, lon)
+        lat = torch.where(escaped, late, lat)
+        ds = torch.where(escaped, 0.0, ds)
+        e2, e3 = col(escaped), escaped.view(R, 1, 1)
+        dx = torch.where(e3, dxe, dx)
+        dz = torch.where(e2, dze, dz)
+        dds = torch.where(e2, 0.0, dds)
+
+        # interp_all at z, with its tangents
+        zc = z.unsqueeze(1)
+        i, (p, pa, pb, pzp), (t, ta, tb, tzp), za, zb = \
+            _interp_partials(prof, zc)
+        za3, zb3, zc3 = za.unsqueeze(1), zb.unsqueeze(1), zc.unsqueeze(1)
+        q = _lin(za3, _take_lo(prof, prof.q, i), zb3, _take(prof.q, i + 1),
+                 zc3)
+        k = _lin(za3, _take_lo(prof, prof.k, i), zb3, _take(prof.k, i + 1),
+                 zc3)
+        p, t, q, k = p[:, 0], t[:, 0], q[..., 0], k[..., 0]
+        lo = _take_tan(dP, i, prof.short)[:, 0]             # [R, F, n]
+        hi = _take_tan(dP, i + 1, False)[:, 0]
+        d_p = pa * lo[:, 0] + pb * hi[:, 0] + pzp * dz
+        d_t = ta * lo[:, 1] + tb * hi[:, 1] + tzp * dz
+        w = tb.unsqueeze(1)                                  # [R, 1, 1]
+
+        def lin_t(rows, lo_v, hi_v):
+            slope = ((_take(rows, i + 1) - _take_lo(prof, rows, i))
+                     / (zb3 - za3))                          # [R, C, 1]
+            return (1.0 - w) * lo_v + w * hi_v + slope * dz.unsqueeze(1)
+        d_q = lin_t(prof.q, lo[:, 2:2 + G], hi[:, 2:2 + G])
+        d_k = lin_t(prof.k, lo[:, 2 + G:], hi[:, 2 + G:])
+
+        active = ok & ~stopped
+        is_low = active & (z < z_low)
+        z_low = torch.where(is_low, z, z_low)
+        z_low_idx = torch.where(is_low, ip, z_low_idx)
+
+        stopping = active & escaped
+        tsurf = torch.where(stopping & below, t, tsurf)
+        dtsurf = torch.where(col(stopping & below), d_t, dtsurf)
+
+        for key, val in (("z", z), ("lon", lon), ("lat", lat), ("p", p),
+                         ("t", t), ("q", q), ("k", k), ("ds", ds),
+                         ("ds_corr", torch.where(stopping, ds_corr, nan)),
+                         ("valid", active)):
+            outs[key].append(val)
+        for key, val in (("p", d_p), ("t", d_t), ("q", d_q), ("k", d_k),
+                         ("ds", dds),
+                         ("ds_corr", torch.where(col(stopping), dds_corr,
+                                                 0.0))):
+            touts[key].append(val)
+
+        # direction update with optional refraction (jr_common.h:664-690)
+        if refrac:
+            r0 = refractivity(p, t)
+            nn = 1.0 + r0
+            xh2 = x + (0.5 * ds).unsqueeze(1) * ex
+            h = 0.02
+            xps = [xh2]
+            for j in range(3):
+                xps.append(torch.stack([xh2[:, m] + h if m == j
+                                        else xh2[:, m] for m in range(3)],
+                                       dim=1))
+            zq = torch.stack([torch.sqrt(_dot3(v, v)) - RE for v in xps],
+                             dim=1)
+            i4, (pq, pa4, pb4, pz4), (tq, ta4, tb4, tz4), _, _ = \
+                _interp_partials(prof, zq)
+            nq = refractivity(pq, tq)
+            g = (nq[:, 1:] - nq[:, :1]) / h
+            use = (z <= Z_REFRAC)
+            nfac = torch.where(use, nn, 1.0)
+            ng = torch.where(use.unsqueeze(1), g, 0.0)
+            ex1 = ex * nfac.unsqueeze(1) + ds.unsqueeze(1) * ng
+            # every offset point moves with the midpoint
+            dxh2 = dx + (0.5 * dds).unsqueeze(1) * ex.unsqueeze(2) \
+                + (0.5 * ds).view(R, 1, 1) * dex
+            dzq = torch.stack([_dot3t(v, dxh2)
+                               / col(torch.sqrt(_dot3(v, v)))
+                               for v in xps], dim=1)         # [R, 4, n]
+            lo4 = _take_tan(dP, i4, prof.short)
+            hi4 = _take_tan(dP, i4 + 1, False)
+            e4 = lambda a: a.unsqueeze(2)
+            dpq = e4(pa4) * lo4[:, :, 0] + e4(pb4) * hi4[:, :, 0] \
+                + e4(pz4) * dzq
+            dtq = e4(ta4) * lo4[:, :, 1] + e4(tb4) * hi4[:, :, 1] \
+                + e4(tz4) * dzq
+            dnq = (7.753e-05 * dpq - e4(nq) * dtq) / e4(tq)
+            dnn = (7.753e-05 * d_p - col(r0) * d_t) / col(t)
+            dg = (dnq[:, 1:] - dnq[:, :1]) / h               # [R, 3, n]
+            dnf = torch.where(col(use), dnn, 0.0)
+            dng = torch.where(use.view(R, 1, 1), dg, 0.0)
+            dex1 = dex * nfac.view(R, 1, 1) + ex.unsqueeze(2) \
+                * dnf.unsqueeze(1) + dds.unsqueeze(1) * ng.unsqueeze(2) \
+                + ds.view(R, 1, 1) * dng
+        else:
+            ex1, dex1 = ex, dex
+        en = torch.sqrt(_dot3(ex1, ex1))
+        ex1 = ex1 / en.unsqueeze(1)
+        dex1 = (dex1 - ex1.unsqueeze(2) * _dot3t(ex1, dex1).unsqueeze(1)) \
+            / en.view(R, 1, 1)
+        x_new = x + (0.5 * ds).unsqueeze(1) * (ex + ex1)
+        dx_new = dx + (0.5 * dds).unsqueeze(1) * (ex + ex1).unsqueeze(2) \
+            + (0.5 * ds).view(R, 1, 1) * (dex + dex1)
+
+        advance = (active & ~stopping).unsqueeze(1)
+        dpx, dpz = dx, dz
+        x = torch.where(advance, x_new, x)
+        ex = torch.where(advance, ex1, ex)
+        dx = torch.where(advance.unsqueeze(2), dx_new, dx)
+        dex = torch.where(advance.unsqueeze(2), dex1, dex)
+        stopped = stopped | stopping | ~ok
+        pz, plon, plat = z, lon, lat
+
+    st = {k: torch.stack(v, dim=1) for k, v in outs.items()}
+    los, corr_at, corr_idx = _finish_los(st, ok, tsurf, z_low_idx, og)
+    T = {k: torch.stack(v, dim=1) for k, v in touts.items()}
+
+    # the ds correction, the trapezoid rule and the column densities
+    dcorr = torch.gather(T["ds_corr"], 1,
+                         corr_idx.view(R, 1, 1).expand(R, 1, nt))
+    dds = torch.where(corr_at.unsqueeze(2), dcorr, T["ds"])   # [R, S, n]
+    dds_prev = torch.cat([torch.zeros_like(dds[:, :1]), dds[:, :-1]], dim=1)
+    dds_trap = 0.5 * (dds_prev + dds)
+    p, t, q = st["p"].unsqueeze(2), st["t"].unsqueeze(2), st["q"]
+    d_p, d_t, d_q = T["p"].unsqueeze(2), T["t"].unsqueeze(2), T["q"]
+    a = 10.0 * q * p                                     # [R, S, G]
+    da = 10.0 * (d_q * p.unsqueeze(3) + q.unsqueeze(3) * d_p)
+    b = KB * t
+    cq = a / b
+    dcq = (da - cq.unsqueeze(3) * (KB * d_t)) / b.unsqueeze(3)
+    ds_trap = los.ds.view(R, nlos, 1, 1)
+    du = dcq * ds_trap + cq.unsqueeze(3) * dds_trap.unsqueeze(2)
+    seg = torch.cat([d_p, d_t, d_q, T["k"], du, dds_trap.unsqueeze(2)],
+                    dim=2)
+    return los, LosTangents(seg=seg,
+                            tsurf=torch.where(col(ok), dtsurf, 0.0))
 
 
 # ---------------------------------------------------------------------------

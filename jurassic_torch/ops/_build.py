@@ -49,6 +49,17 @@ ENTRY_POINTS = {
     "jt_trace_smem_bytes": [_I] * 5 + [_P],   # L G W nlos is_double out
     "jt_trace_fast_ops_check": [_P, ctypes.c_longlong, ctypes.c_longlong,
                                 _P],
+    # 11 inputs (the tracer's 9, profile tangents, window indices), 15
+    # LosData fields, the flag, the LOS and tsurf tangents; R L G W nlos n;
+    # rayds raydz; refrac entry_iters; RE DEG2RAD RAD2DEG KB Z_REFRAC;
+    # is_double stream
+    "jt_trace_rays_jvp": [_P] * 29 + [_I] * 6 + [_D, _D, _I, _I]
+    + [_D] * 5 + [_I, _P],
+    "jt_trace_jvp_smem_bytes": [_I] * 5 + [_P],
+    # 8 table tensors, 18 others, 3 scratch; R S G W D P T K n_src n
+    # flags ig_co2 ig_h2o bbt; 8 constants; is_double stream
+    "jt_ega_jvp_fast": [_P] * 29 + [_I] * 14 + [_D] * 8 + [_I, _P],
+    "jt_ega_jvp_scratch": [_I, _P, _P],             # G rec epi
 }
 
 _lib = None

@@ -203,3 +203,78 @@ def beta_ds(ctl_flags, cc, window_k, ds, p, t, q_h2o, u_co2, u_h2o):
     if o2:
         total = total + continua_o2(cc, p, t) * ds
     return total
+
+
+def beta_ds_partials(ctl_flags, cc, window_k, ds, p, t, q_h2o, u_co2,
+                     u_h2o):
+    """(bds, partials): :func:`beta_ds`, bit for bit, and its local
+    partials [..., D] in the order of ``BDS_INPUTS`` (window_k, ds, p, t,
+    q_h2o, u_co2, u_h2o), every one broadcast to bds's shape -- of
+    ``forward.rt_integrate_jvp_ref`` and the plain arithmetic of the RT
+    JVP kernel (``csrc/ega_jvp_fast.cu``).  ``torch.pow``'s exponent rule
+    gives 0 where the H2O self-continuum's base is 0."""
+    co2, h2o, n2, o2 = ctl_flags
+    bds = beta_ds(ctl_flags, cc, window_k, ds, p, t, q_h2o, u_co2, u_h2o)
+    z = torch.zeros_like(bds)
+    d_kw, d_ds, d_p, d_t, d_q, d_uc, d_uh = (z + ds, z + window_k, z, z, z,
+                                             z, z)
+    if co2:
+        dt230, dt260, dt296 = t - 230.0, t - 260.0, t - 296.0
+        ctw = (dt260 * 5.050505e-4 * dt296 * cc.co2_cw230
+               - dt230 * 9.259259e-4 * dt296 * cc.co2_cw260
+               + dt230 * 4.208754e-4 * dt260 * cc.co2_cw296)
+        dctw = (5.050505e-4 * cc.co2_cw230 * (dt296 + dt260)
+                - 9.259259e-4 * cc.co2_cw260 * (dt296 + dt230)
+                + 4.208754e-4 * cc.co2_cw296 * (dt260 + dt230))
+        k0 = NA * 1000.0 * P0
+        d_uc = d_uc + p * ctw / k0
+        d_p = d_p + u_co2 * ctw / k0
+        d_t = d_t + u_co2 * p * dctw / k0
+    if h2o:
+        base = torch.where(cc.h2o_cw296 > 0, cc.h2o_cw260 / torch.where(
+            cc.h2o_cw296 > 0, cc.h2o_cw296, 1.0), 1.0)
+        pw = torch.pow(base, (296.0 - t) / (296.0 - 260.0))
+        ctwslf = cc.h2o_sfac * cc.h2o_cw296 * pw
+        dslf = cc.h2o_sfac * cc.h2o_cw296 * torch.where(
+            base == 0, 0.0, pw * torch.log(torch.where(base == 0, 1.0, base))
+        ) * (-1.0 / (296.0 - 260.0))
+        x = 0.7193876 / t * cc.h2o_nu
+        th = torch.tanh(x)
+        a1 = cc.h2o_nu * u_h2o * th
+        a1_t = cc.h2o_nu * u_h2o * (1.0 - th * th) * (-0.7193876 / (t * t)
+                                                       * cc.h2o_nu)
+        a2 = 296.0 / t
+        a2_t = -296.0 / (t * t)
+        mixv = q_h2o * ctwslf + (1 - q_h2o) * cc.h2o_ctwfrn
+        a3 = p / P0 * mixv * 1e-20
+        msk = lambda a: torch.where(cc.h2o_mask, a, 0.0)
+        d_uh = d_uh + msk(cc.h2o_nu * th * a2 * a3)
+        d_p = d_p + msk(a1 * a2 * (mixv * 1e-20 / P0))
+        d_q = d_q + msk(a1 * a2 * (p / P0 * (ctwslf - cc.h2o_ctwfrn)
+                                   * 1e-20))
+        d_t = d_t + msk(a1_t * a2 * a3 + a1 * a2_t * a3
+                        + a1 * a2 * (p / P0 * q_h2o * dslf * 1e-20))
+    for on, b, beta, qgas, mix_t, mask in (
+            (n2, cc.n2_b, cc.n2_beta, 0.79, -(1 - 0.79) * 0.4545 / 296.0,
+             cc.n2_mask),
+            (o2, cc.o2_b, cc.o2_beta, 0.21, 0.0, cc.o2_mask)):
+        if not on:
+            continue
+        mix = (0.79 + (1 - 0.79) * (1.294 - 0.4545 * t / 296.0)
+               if qgas == 0.79 else 1.0)
+        pr, tr = p / P0, 273.0 / t
+        e = torch.exp(beta * (1 / 296.0 - 1 / t))
+        c = 0.1 * qgas * b
+        val = c * pr ** 2 * tr ** 2 * e * mix
+        v_p = c * 2.0 * pr / P0 * tr ** 2 * e * mix
+        v_t = c * pr ** 2 * (2.0 * tr * (-273.0 / (t * t)) * e * mix
+                             + tr ** 2 * e * beta / (t * t) * mix
+                             + tr ** 2 * e * mix_t)
+        msk = lambda a: torch.where(mask, a, 0.0)
+        d_ds = d_ds + msk(val)
+        d_p = d_p + msk(v_p) * ds
+        d_t = d_t + msk(v_t) * ds
+    return bds, (d_kw, d_ds, d_p, d_t, d_q, d_uc, d_uh)
+
+
+BDS_INPUTS = ("window_k", "ds", "p", "t", "q_h2o", "u_co2", "u_h2o")

@@ -212,7 +212,36 @@ def ega_eps_exact(tbl: EgaDeviceTables, tau_path, t, u_seg, p):
 
 def ega_eps_fast(tbl: FastDeviceTables, tau_path, t, u_seg, p):
     """Fast-mode EGA factor on log-uniform resampled tables; same
-    contract as :func:`ega_eps_exact`.
+    contract as :func:`ega_eps_exact` (:func:`_ega_fast`)."""
+    return _ega_fast(tbl, tau_path, t, u_seg, p, False)
+
+
+def ega_eps_fast_partials(tbl: FastDeviceTables, tau_path, t, u_seg, p):
+    """(factor, dfactor/dtau_path, dfactor/dt, dfactor/dp,
+    dfactor/du_seg), each [R, G, D]: :func:`ega_eps_fast`'s factor, bit
+    for bit, and its local partials, by torch's rules at the kinks
+    (``torch.clamp`` passes a tangent at its bounds, ``torch.where``
+    takes the selected side's).  The searches' indices are piecewise
+    constant; the slopes are the inversion's (eps -> u), the forward
+    lookup's (u -> eps) and the bilinear (t, p) weights', behind the
+    ``_c01`` clamps and ``_factor``'s guards.  Of
+    ``forward.rt_integrate_jvp_ref`` and of the RT JVP kernel's plain
+    arithmetic (``csrc/ega_jvp_fast.cu``)."""
+    return _ega_fast(tbl, tau_path, t, u_seg, p, True)
+
+
+def _in01(x):
+    """Where ``_c01`` passes a tangent (torch.clamp's rule)."""
+    return (x >= 0.0) & (x <= 1.0)
+
+
+def _guard(d):
+    return torch.where(d == 0, 1.0, d)
+
+
+def _ega_fast(tbl: FastDeviceTables, tau_path, t, u_seg, p,
+              partials: bool):
+    """Fast-mode EGA factor (and with ``partials`` its local partials).
 
     The eps->u inversion (get_u, jr_common.h:180-185) is a binary search
     on the eps row -- ``ceil(log2 K)`` single-element gathers, a fixed
@@ -291,4 +320,41 @@ def ega_eps_fast(tbl: FastDeviceTables, tau_path, t, u_seg, p):
     eps_t = _c01(_lip(p0, eps_p0, p1, eps_p1, pb))
     no_table = ((tbl.np_ < 2) | (nt_lo < 2) | (nt_hi < 2)
                 | ~ok.all(dim=2))
-    return _factor(tau_path, eps_t, no_table)
+    factor = _factor(tau_path, eps_t, no_table)
+    if not partials:
+        return factor
+
+    # corners: d eps_c / d target (through u_c) and / d u_seg
+    s_inv = (u0 * ratio - u0) / _guard(gather(lo + 1) - gather(lo))
+    raw = _lip(u_lo, gather(ki), u_lo * ratio, gather(ki + 1), u_new)
+    s_fwd = torch.where(_in01(raw), (gather(ki + 1) - gather(ki))
+                        / _guard(u_lo * ratio - u_lo), 0.0)
+    c_T, c_u = s_fwd * s_inv, s_fwd
+
+    def t_lip(ta, tb_, c0, c1):
+        """One pressure row's t interpolation: (d/d target, d/du,
+        d/dt) of its clamped value."""
+        raw = _lip(ta, eps_c[:, :, c0], tb_, eps_c[:, :, c1], tb)
+        d = _guard(tb_ - ta)
+        w = (tb - ta) / d
+        m = _in01(raw)
+        mix = lambda a: torch.where(m, (1.0 - w) * a[:, :, c0]
+                                    + w * a[:, :, c1], 0.0)
+        return (mix(c_T), mix(c_u), torch.where(
+            m, (eps_c[:, :, c1] - eps_c[:, :, c0]) / d, 0.0))
+    r0, r1 = t_lip(t00, t01, 0, 1), t_lip(t10, t11, 2, 3)
+    raw = _lip(p0, eps_p0, p1, eps_p1, pb)
+    d = _guard(p1 - p0)
+    w = (pb - p0) / d
+    m = _in01(raw)
+    e_T, e_u, e_t = (torch.where(m, (1.0 - w) * a + w * b, 0.0)
+                     for a, b in zip(r0, r1))
+    e_p = torch.where(m, (eps_p1 - eps_p0) / d, 0.0)
+    # the factor (1 - eps_t) / tau_path where a gas is neither opaque nor
+    # without a table, with eps_t's target 1 - tau_path
+    keep = ~(tau_path < TAU_OPAQUE) & ~no_table
+    tp = torch.where(keep, tau_path, 1.0)
+    f_raw = (1.0 - eps_t) / tp
+    part = lambda a: torch.where(keep, a, 0.0).to(dtype)
+    return (factor, part((e_T - f_raw) / tp), part(-e_t / tp),
+            part(-e_p / tp), part(-e_u / tp))

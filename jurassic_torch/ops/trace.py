@@ -27,25 +27,28 @@ SMEM_LIMIT = 232448  # shared memory one block may use on the H100 (227 KB)
 
 
 def shared_memory_bytes(L: int, G: int, W: int, nlos: int,
-                        dtype: torch.dtype) -> int:
+                        dtype: torch.dtype,
+                        entry: str = "jt_trace_smem_bytes") -> int:
     """Bytes of shared memory the kernel gives a ray's block at these sizes
     (its profiles z, p, t, q, k and the step chain's records; the
-    kernel's own count, ``jt_trace_smem_bytes``).  Raises ValueError
-    where they exceed ``SMEM_LIMIT``: the kernel reads nothing of a ray's
-    profiles and records from global memory."""
+    kernel's own count, ``entry``: ``jt_trace_smem_bytes`` of the tracer
+    kernel, ``jt_trace_jvp_smem_bytes`` of its tangent kernel, which adds
+    the ray's window indices).  Raises ValueError where they exceed
+    ``SMEM_LIMIT``: the kernels read nothing of a ray's profiles and
+    records from global memory."""
     import ctypes
 
     from ._build import load_library
 
     n = ctypes.c_longlong()
-    rc = load_library().jt_trace_smem_bytes(
+    rc = getattr(load_library(), entry)(
         L, G, W, nlos, int(dtype == torch.float64), ctypes.addressof(n))
     if rc != 0:
-        raise ValueError(f"jt_trace_smem_bytes refused L = {L}, G = {G}, "
-                         f"W = {W}, NLOS = {nlos}")
+        raise ValueError(f"{entry} refused L = {L}, G = {G}, W = {W}, "
+                         f"NLOS = {nlos}")
     if n.value > SMEM_LIMIT:
         raise ValueError(
-            f"the tracer kernel keeps a ray's profiles and step records in "
+            f"the tracer kernels keep a ray's profiles and step records in "
             f"shared memory: {n.value} bytes at L = {L}, G = {G}, W = {W}, "
             f"NLOS = {nlos} in {dtype} exceed one block's {SMEM_LIMIT} "
             f"bytes (227 KB)")

@@ -9,18 +9,22 @@
 * the finite-difference Jacobian :func:`kernel` (jurassic.c:812-857) with
   the reference's per-quantity perturbation sizes: n+1 ``formod`` calls
   through whatever the model runs (on a card, the fused CUDA kernels);
-* :func:`kernel_autodiff`: ``torch.func.jacfwd`` through the eager
-  tracer, the in-graph hydrostatic rebuild and the eager RT pass, ray
-  package by ray package.
+* :func:`kernel_autodiff`: the forward-mode Jacobian, chained by hand --
+  ``torch.func.jacfwd`` of the state map (scatter and in-graph
+  hydrostatic rebuild) on the atm axis, then the tracer's and the eager
+  fast RT pass's tangents (two CUDA kernels on a card, their plain
+  versions on the CPU), ray package by ray package;
+  :func:`kernel_autodiff_jacfwd`: ``torch.func.jacfwd`` through the
+  whole eager pipeline (``KERNEL = exact``, and the oracle).
 
 The seam: ``kernel_autodiff`` differentiates the eager pipeline
-(``forward.rt_integrate``) whatever kernel the model runs, as the JAX
-package does (retrieval.py:178-191): the fused kernels have no
+(``forward.rt_integrate``) whatever kernel the model's forward runs, as
+the JAX package does (retrieval.py:178-191): the fused kernels have no
 derivative.  GSL vectors/matrices become plain NumPy arrays.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
 
@@ -163,31 +167,61 @@ def kernel(ctl: Ctl, atm: Atm, obs: Obs,
     return K
 
 
-def autodiff_ray_bytes(model: "ForwardModel", n: int) -> int:
+def autodiff_ray_bytes(model: "ForwardModel", n: int,
+                       jacfwd: bool = False) -> int:
     """Device bytes per ray of one ``kernel_autodiff`` package for an
-    n-element state: the eager pass's in-flight bytes per ray
-    (``ForwardModel.ray_terms`` in the eager mode the autodiff runs),
+    n-element state.
+
+    On fast tables (the tangent kernels' path, or their plain versions):
+    the LOS (``ForwardModel.ray_terms``' ``los``), its tangents
+    [NLOS, 3 + 2 G + W, n] and tsurf's [n] in the model's dtype, the RT
+    tangent kernel's scratch (``ops.ega_jvp.scratch_lengths``, the
+    library's count: a record per segment and channel, counted for every
+    one of the NLOS segments, at most that many are valid, and the
+    epilogue's values per channel), and the K rows: drad [D, n] and its
+    masked selection in the model's dtype, their float64 copy, the RT
+    pass's rad and tau, and the mask.  The profile tangents
+    are per atm point [N, 2 + G + W, n], made once per Jacobian before
+    the free memory is read, and not counted here.
+
+    On exact tables, or with ``jacfwd`` (:func:`kernel_autodiff_jacfwd`):
+    the eager pass's in-flight bytes per ray (``ray_terms`` in its mode),
     where the float tensors that carry tangents count 1 + n times, a
     primal and n tangents, and the integer indices, masks and table rows,
     which no tangent reaches, once."""
-    mode = "fast" if model.eager_tables().use_fast else "exact"
-    t = model.ray_terms(mode)
+    use_fast = model.eager_tables().use_fast
+    if jacfwd or not use_fast:
+        t = model.ray_terms("fast" if use_fast else "exact")
 
-    def bytes_(*terms):
-        return sum(t[k][0] * (1 + n) + t[k][1] for k in terms)
-    return max(bytes_("trace"), bytes_("los", "step")) + bytes_("out")
+        def bytes_(*terms):
+            return sum(t[k][0] * (1 + n) + t[k][1] for k in terms)
+        return max(bytes_("trace"), bytes_("los", "step")) + bytes_("out")
+    import torch
+
+    from .ops.ega_jvp import scratch_lengths
+    ctl = model.ctl
+    S, G, W, D = ctl.nlos, ctl.ng, ctl.nw, ctl.nd
+    b = torch.empty((), dtype=model.dtype).element_size()
+    los = sum(model.ray_terms("fast")["los"])
+    tangents = (S * (3 + 2 * G + W) + 1) * n * b
+    rec_len, epi_len = scratch_lengths(G)
+    records = (S * rec_len + epi_len) * D * b + 8
+    rows = D * n * (2 * b + 8) + 2 * D * b + D
+    return los + tangents + records + rows
 
 
-def autodiff_package_size(model: "ForwardModel", nr: int, n: int) -> int:
-    """Rays per package of ``kernel_autodiff`` on an nr-ray batch (0: one
-    package).  ``RAYPACK`` n > 0 decides as it does for ``formod``, < 0
-    is one package; 0 on a card fits one package in flight
+def autodiff_package_size(model: "ForwardModel", nr: int, n: int,
+                          jacfwd: bool = False) -> int:
+    """Rays per package of ``kernel_autodiff`` (``jacfwd``:
+    :func:`kernel_autodiff_jacfwd`) on an nr-ray batch (0: one package).
+    ``RAYPACK`` n > 0 decides as it does for ``formod``, < 0 is one
+    package; 0 on a card fits one package in flight
     (:func:`autodiff_ray_bytes` per ray) into 90 % of the free memory,
     read on every call; the CPU runs one package."""
     pack = int(model.ctl.raypack)
     if pack == 0 and model.device.type == "cuda":
         fit = int(0.9 * model.free_device_bytes()) \
-            // autodiff_ray_bytes(model, n)
+            // autodiff_ray_bytes(model, n, jacfwd)
         pack = max(fit, 1)
     return model.package_size(nr, pack)
 
@@ -215,73 +249,189 @@ def _state_scatter(ctl: Ctl, atm: Atm, iqa: np.ndarray, ipa: np.ndarray):
     return out
 
 
+class _StateMap:
+    """The state vector of a Jacobian and its map to the atm fields:
+    ``x0`` (packed after the host's hydrostatic rebuild, as the FD kernel
+    packs it) and :meth:`fields`, the scatter of x into the flat atm
+    point axis (one gather and one select per field) with pressure
+    rebuilt per (lon, lat) profile where HYDZ >= 0
+    (``geometry.hydrostatic_profile_torch``), differentiable in x."""
+
+    def __init__(self, ctl: Ctl, atm: Atm, dev, dtype):
+        import torch
+
+        from .geometry import hydrostatic_atm, profile_blocks
+        hydrostatic_atm(ctl, atm)
+        self.ctl, self.atm = ctl, atm
+        self.x0, self.iqa, self.ipa = atm2x(ctl, atm)
+        self.ig_h2o = ctl.emitter_index("H2O")
+        self.blocks = profile_blocks(atm) if ctl.hydz >= 0 else []
+        self.lat_ref = [float(atm.lat[a:b][int(np.argmin(np.abs(
+            atm.z[a:b] - ctl.hydz)))]) for (a, b) in self.blocks]
+        self.ten = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
+            dev, dtype)
+        self.base = [self.ten(f) for f in (atm.p, atm.t, atm.q, atm.k)]
+        self.scatter = [
+            None if sc is None else (torch.from_numpy(sc[0]).to(dev),
+                                     torch.from_numpy(sc[1]).to(dev))
+            for sc in _state_scatter(ctl, atm, self.iqa, self.ipa)]
+
+    def fields(self, x):
+        """(p [N], t [N], q [G, N], k [W, N]) with x in place."""
+        import torch
+
+        from .geometry import hydrostatic_profile_torch
+        p, t, q, k = (f if s is None else torch.where(s[0], x[s[1]], f)
+                      for f, s in zip(self.base, self.scatter))
+        if self.blocks:
+            ig, atm = self.ig_h2o, self.atm
+            p = torch.cat([hydrostatic_profile_torch(
+                self.ctl.hydz, atm.z[a:b], p[a:b], t[a:b],
+                q[ig, a:b] if ig >= 0 else None, lat)
+                for (a, b), lat in zip(self.blocks, self.lat_ref)])
+        return p, t, q, k
+
+
+def _packages(model: "ForwardModel", obs: Obs, n: int, route: str):
+    """The row slices of ``kernel_autodiff``'s ray packages; prints the
+    one line that names them and the route."""
+    pack = autodiff_package_size(model, obs.nr, n,
+                                 route == "torch.func.jacfwd") or obs.nr
+    starts = range(0, obs.nr, pack)
+    print(f"# kernel_autodiff: {len(starts)} package(s) of up to {pack} "
+          f"rays, n = {n}, {model.dtype} on {model.device}; {route}")
+    return [slice(a, min(a + pack, obs.nr)) for a in starts]
+
+
 def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
                     model: Optional["ForwardModel"] = None) -> np.ndarray:
-    """Jacobian K[m, n] = d rad / d x by ``torch.func.jacfwd`` (forward
-    mode: n, the state size, is far below m) through the eager pipeline,
-    in the model's dtype and on its device (``retrieval.py:161-284`` of
-    the JAX package).
+    """Jacobian K[m, n] = d rad / d x in forward mode (n, the state size,
+    is far below m), in the model's dtype and on its device: the
+    counterpart of the JAX package's compiled ``jax.jit(jax.jacfwd(fwd))``
+    (``retrieval.py:161-284`` there), chained explicitly.
 
-    This is the one caller of the plain tracer on a card: a kernel has no
-    tangent, so ``torch.func.jacfwd`` runs through ``trace_rays_ref``
-    (the JAX package differentiates its jitted tracer).
+    1. The seed: ``torch.func.jacfwd`` of the state map (the scatter into
+       the atm points and the in-graph hydrostatic rebuild,
+       :class:`_StateMap`) on the small atm axis, the profile tangents
+       [N, 2 + G + W, n]; rays gather them through their window indices
+       (``geometry.ray_window_indices``), so a multi-profile atmosphere
+       gives each scan its own profile by time.
+    2. The tracer and its tangents (``geometry.trace_rays_jvp``: the
+       kernel ``csrc/trace_rays_jvp.cu`` on a card, its plain version on
+       the CPU).
+    3. The eager fast-table RT pass and its tangent
+       (``ForwardModel.integrate_jvp``: the kernel ``csrc/
+       ega_jvp_fast.cu`` on a card, ``forward.rt_integrate_jvp_ref`` on
+       the CPU).
 
-    The state vector scatters into the flat atm point axis (one gather
-    and one select per field); HYDZ >= 0 rebuilds pressure per (lon,
-    lat) profile inside the differentiated graph
-    (``geometry.hydrostatic_profile_torch``), so pressure derivatives
-    flow through the rebuild as the FD kernel sees them; per-ray
-    profiles are gathers through the window indices of
-    ``geometry.ray_window_indices``, so a multi-profile atmosphere gives
-    each scan its own profile by time.  Then the plain tracer
-    ``geometry.trace_rays_ref`` and the model's eager pass
-    (:meth:`~jurassic_torch.forward.ForwardModel.integrate_eager`, its
-    fast or exact tables).  Masked radiances are
-    zeroed; the finite rows are returned as float64.
+    The seam: it differentiates the eager fast pipeline whatever kernel
+    the model's forward runs, as the JAX package does (retrieval.py:
+    178-191 there).  A ``KERNEL = exact`` model's tables are not the fast
+    ones and have no tangent kernel: it runs
+    :func:`kernel_autodiff_jacfwd` on every device.  Masked radiances
+    give zero rows; the finite rows are returned as float64.
 
     A ray's rows depend only on its own profile and geometry, so the
     Jacobian runs ray package by ray package (:func:`autodiff_package_
-    size`; one line names the packages) and stacks their rows: the same
-    bits as one package.  The tangents multiply the eager pass's float
-    memory by up to 1 + n."""
+    size`; one line names the packages and the route) and stacks their
+    rows: the same bits as one package.  A CUDA model launches the two
+    kernels once per package, or raises; nothing falls back."""
     import torch
 
     from .forward import ForwardModel, _obs_rows
-    from .geometry import (build_ray_profiles, hydrostatic_atm,
-                           hydrostatic_profile_torch, profile_blocks,
-                           ray_window_indices, trace_rays_ref)
+    from .geometry import check_entry_flag, trace_rays_jvp
+
+    if model is None:
+        model = ForwardModel(ctl)
+    if not model.eager_tables().use_fast:
+        return kernel_autodiff_jacfwd(ctl, atm, obs, model)
+    mask = ~np.isfinite(obs.rad)
+    seed = autodiff_seed(ctl, atm, model)
+    n = seed.map.x0.size
+
+    def package_jacobian(obs_k: Obs, mask_k: np.ndarray) -> np.ndarray:
+        prof, ptan, geo = package_tangents(ctl, atm, obs_k, model, seed)
+        los, tan, flag = trace_rays_jvp(ctl, prof, ptan, geo)
+        _, drad = model.integrate_jvp(los, tan)       # [r, D, n]
+        rows = drad[~torch.from_numpy(mask_k).to(model.device)]
+        out = rows.to(torch.float64).cpu().numpy()
+        check_entry_flag(flag.cpu().numpy())
+        return out
+
+    route = ("tangent kernels" if model.device.type == "cuda"
+             else "plain tangent chain")
+    return np.concatenate([package_jacobian(_obs_rows(obs, r), mask[r])
+                           for r in _packages(model, obs, n, route)])
+
+
+class AutodiffSeed(NamedTuple):
+    """The first link of :func:`kernel_autodiff`'s chain: the state map,
+    its ``torch.func.jacfwd`` at x0 -- the profile tangents ``d``
+    [N, 2 + G + W, n] (p, t, q[G], k[W] at the atm points) -- and the
+    fields (p, t, q, k) at x0."""
+    map: "_StateMap"
+    d: "torch.Tensor"
+    fields: tuple
+
+
+def autodiff_seed(ctl: Ctl, atm: Atm, model: "ForwardModel"
+                  ) -> AutodiffSeed:
+    """:class:`AutodiffSeed` of ``atm`` (hydrostatics applied to it in
+    place, as the FD kernel packs x0) in the model's dtype and on its
+    device."""
+    import torch
+    sm = _StateMap(ctl, atm, model.device, model.dtype)
+
+    def stacked(x):
+        p, t, q, k = sm.fields(x)
+        return torch.cat([p[:, None], t[:, None], q.T, k.T], dim=1)
+    x0 = sm.ten(sm.x0)
+    return AutodiffSeed(sm, torch.func.jacfwd(stacked)(x0), sm.fields(x0))
+
+
+def package_tangents(ctl: Ctl, atm: Atm, obs: Obs, model: "ForwardModel",
+                     seed: AutodiffSeed):
+    """(profiles, ``geometry.ProfileTangents``, observation geometry) of
+    the rays of ``obs``: the profiles at x0 and the seed's tangents,
+    gathered through the rays' window indices -- what the tracer's
+    tangent pass takes."""
+    import torch
+
+    from .geometry import (ProfileTangents, build_ray_profiles,
+                           ray_window_indices)
+    dev = model.device
+    _, _, gi = ray_window_indices(atm, obs)
+    gi = torch.from_numpy(gi).to(dev)
+    p0, t0, q0, k0 = seed.fields
+    prof = build_ray_profiles(ctl, atm, obs, model.dtype, dev)._replace(
+        p=p0[gi], t=t0[gi], q=q0[:, gi].movedim(0, 1).contiguous(),
+        k=k0[:, gi].movedim(0, 1).contiguous())
+    return prof, ProfileTangents(seed.d, gi), model._obs_geo(obs)
+
+
+def kernel_autodiff_jacfwd(ctl: Ctl, atm: Atm, obs: Obs,
+                           model: Optional["ForwardModel"] = None
+                           ) -> np.ndarray:
+    """:func:`kernel_autodiff` by ``torch.func.jacfwd`` through the whole
+    eager pipeline: the plain tracer ``geometry.trace_rays_ref`` and the
+    model's eager pass (:meth:`~jurassic_torch.forward.ForwardModel.
+    integrate_eager`, its fast or exact tables) after the same state map,
+    package by package.  The route of ``KERNEL = exact`` models, and the
+    oracle the tangent chain is held to (in the tests and on the card).
+    It runs one host dispatch per operation and tangent batch: the
+    tangents multiply the eager pass's float memory by up to 1 + n."""
+    import torch
+
+    from .forward import ForwardModel, _obs_rows
+    from .geometry import (build_ray_profiles, ray_window_indices,
+                           trace_rays_ref)
 
     if model is None:
         model = ForwardModel(ctl)
     dev, dtype = model.device, model.dtype
     mask = ~np.isfinite(obs.rad)
-    hydrostatic_atm(ctl, atm)       # the FD kernel packs x0 post-rebuild
-    x0, iqa, ipa = atm2x(ctl, atm)
-    n = x0.size
-    ig_h2o = ctl.emitter_index("H2O")
-    blocks = profile_blocks(atm) if ctl.hydz >= 0 else []
-    lat_ref = [float(atm.lat[a:b][int(np.argmin(np.abs(atm.z[a:b]
-                                                       - ctl.hydz)))])
-               for (a, b) in blocks]
-
-    def ten(a):
-        return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
-    base = [ten(f) for f in (atm.p, atm.t, atm.q, atm.k)]
-    scatter = [None if s is None else
-               (torch.from_numpy(s[0]).to(dev), torch.from_numpy(s[1]).to(dev))
-               for s in _state_scatter(ctl, atm, iqa, ipa)]
-
-    def state_fields(x):
-        """(p [N], t [N], q [G, N], k [W, N]) with x in place, pressure
-        rebuilt where HYDZ >= 0."""
-        p, t, q, k = (f if s is None else torch.where(s[0], x[s[1]], f)
-                      for f, s in zip(base, scatter))
-        if blocks:
-            p = torch.cat([hydrostatic_profile_torch(
-                ctl.hydz, atm.z[a:b], p[a:b], t[a:b],
-                q[ig_h2o, a:b] if ig_h2o >= 0 else None, lat)
-                for (a, b), lat in zip(blocks, lat_ref)])
-        return p, t, q, k
+    sm = _StateMap(ctl, atm, dev, dtype)
+    n = sm.x0.size
 
     def package_jacobian(obs_k: Obs, mask_k: np.ndarray) -> np.ndarray:
         _, _, gi = ray_window_indices(atm, obs_k)
@@ -291,20 +441,16 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
         masked = torch.from_numpy(mask_k).to(dev)
 
         def fwd(x):
-            p, t, q, k = state_fields(x)
+            p, t, q, k = sm.fields(x)
             prof = prof0._replace(p=p[gi], t=t[gi],
                                   q=q[:, gi].movedim(0, 1),
                                   k=k[:, gi].movedim(0, 1))
             out = model.integrate_eager(trace_rays_ref(ctl, prof, geo))
             return torch.where(masked, 0.0, out.rad)
 
-        jac = torch.func.jacfwd(fwd)(ten(x0))              # [r, D, n]
+        jac = torch.func.jacfwd(fwd)(sm.ten(sm.x0))        # [r, D, n]
         return jac[~masked].to(torch.float64).cpu().numpy()
 
-    pack = autodiff_package_size(model, obs.nr, n) or obs.nr
-    starts = range(0, obs.nr, pack)
-    print(f"# kernel_autodiff: {len(starts)} package(s) of up to {pack} "
-          f"rays, n = {n}, {dtype} on {dev}")
-    rows = [slice(a, min(a + pack, obs.nr)) for a in starts]
     return np.concatenate([package_jacobian(_obs_rows(obs, r), mask[r])
-                           for r in rows])
+                           for r in _packages(model, obs, n,
+                                              "torch.func.jacfwd")])

@@ -30,7 +30,9 @@ def test_port_import_leaves_jax_out():
     assert "jurassic_torch.tools.peak" in mods and len(mods) >= 20
     assert {"jurassic_torch.parallel", "jurassic_torch.parallel.mesh",
             "jurassic_torch.parallel.sharded",
-            "jurassic_torch.parallel.dryrun"} <= set(mods)
+            "jurassic_torch.parallel.dryrun",
+            "jurassic_torch.ops.trace_jvp",
+            "jurassic_torch.ops.ega_jvp"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -83,14 +85,21 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     cu.write_text(cu.read_text() + "\n// edited\n")
     name1 = _build.library_path()
     assert name1 != name0
-    # the shared header is part of the key too
+    # the shared headers are part of the key too
     cuh = src / "ega_common.cuh"
     assert cuh in _build.sources()
     cuh.write_text(cuh.read_text() + "\n// edited\n")
-    assert _build.library_path() not in (name0, name1)
+    name2 = _build.library_path()
+    assert name2 not in (name0, name1)
+    cuh = src / "trace_common.cuh"
+    assert cuh in _build.sources()
+    cuh.write_text(cuh.read_text() + "\n// edited\n")
+    assert _build.library_path() not in (name0, name1, name2)
     assert _build.build_log() == ""
     # every entry point has its argument types in one table
     assert set(_build.ENTRY_POINTS) == {
         "jt_ega_fused_turbo", "jt_ega_fused_table", "jt_peak_fma",
         "jt_peak_sfu", "jt_peak_copy", "jt_trace_rays",
-        "jt_trace_fast_ops_check", "jt_trace_smem_bytes"}
+        "jt_trace_fast_ops_check", "jt_trace_smem_bytes",
+        "jt_trace_rays_jvp", "jt_trace_jvp_smem_bytes", "jt_ega_jvp_fast",
+        "jt_ega_jvp_scratch"}

@@ -1,0 +1,105 @@
+"""The chained forward-mode Jacobian of ``retrieval.kernel_autodiff``
+(the state map's ``torch.func.jacfwd`` on the atm axis, then the tracer's
+and the fast RT pass's tangents, on the CPU their plain versions) against
+JAX's ``kernel_autodiff`` (its compiled ``jax.jacfwd`` through the
+pipeline) within 1e-8 of max|K|, and against the port's own
+``kernel_autodiff_jacfwd`` within 1e-10, float64 on the CPU.
+
+The case: a small limb scan (4 rays per scan, NLOS 60, 2 gases, 4
+channels) over two scans' profiles at their own (lon, lat) and times
+(the multi-profile atmosphere of ``tests/test_torch_retrieval_seam.py``),
+with HYDZ on (the hydrostatic rebuild inside the seed) and off; the
+state is T at 10-20 km and gas 1 at 20-25 km of both profiles (10
+elements).  ``tests/test_torch_retrieval.py`` holds the single-profile
+case to JAX.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jurassic_torch.retrieval as tret
+from jurassic_tpu.forward import ForwardModel as JaxModel
+from jurassic_tpu.models.synthetic import (limb_workload, synthetic_ctl,
+                                           synthetic_fast_tables)
+from jurassic_tpu.retrieval import kernel_autodiff as jax_kernel_autodiff
+from jurassic_torch.forward import ForwardModel, _obs_rows
+from test_torch_host_copies import (one_thread,  # noqa: F401 (autouse)
+                                    port_atm, port_ctl, port_fast_tables,
+                                    port_obs)
+from test_torch_retrieval import two_profile_atm
+
+
+def _case(hydz: float):
+    ctl = synthetic_ctl(ng=2, nd=4)
+    ctl.nlos = 60
+    ctl.rayds, ctl.raydz = 50.0, 5.0
+    ctl.hydz = hydz
+    ctl.rett_zmin, ctl.rett_zmax = 10.0, 20.0
+    ctl.retq_zmin = [-999.0, 20.0]
+    ctl.retq_zmax = [-999.0, 25.0]
+    atm = two_profile_atm(ctl)
+    obs = limb_workload(ctl, 8)
+    obs.time[4:] = 3600.0                 # rays 4.. view the second scan
+    ft = synthetic_fast_tables(ctl, n_p=8, n_t=6, n_k=48)
+    ctl_t = dataclasses.replace(port_ctl(ctl), kernel="jax")
+    model = ForwardModel(ctl_t, fast_tables=port_fast_tables(ft),
+                         device="cpu")
+    return ctl, ft, atm, obs, ctl_t, model
+
+
+@pytest.mark.parametrize("hydz", [-999.0, 20.0])
+def test_chain_matches_jax_and_jacfwd(hydz, capsys):
+    ctl, ft, atm, obs, ctl_t, model = _case(hydz)
+    K = tret.kernel_autodiff(ctl_t, port_atm(atm.copy()),
+                             port_obs(obs.copy()), model)
+    assert "; plain tangent chain" in capsys.readouterr().out
+    K_j = np.asarray(jax_kernel_autodiff(ctl, atm.copy(), obs.copy(),
+                                         JaxModel(ctl, fast_tables=ft)))
+    K_f = tret.kernel_autodiff_jacfwd(ctl_t, port_atm(atm.copy()),
+                                      port_obs(obs.copy()), model)
+    assert "; torch.func.jacfwd" in capsys.readouterr().out
+    x, _, ipa = tret.atm2x(ctl_t, port_atm(atm.copy()))
+    assert x.size == 10 and (ipa >= atm.npts // 2).any()
+    assert K.shape == K_j.shape == K_f.shape == (obs.nr * ctl.nd, 10)
+    assert K.dtype == np.float64 and np.isfinite(K).all()
+    scale = np.abs(K_j).max()
+    assert scale > 0
+    np.testing.assert_allclose(K, K_j, rtol=0, atol=1e-8 * scale)
+    np.testing.assert_allclose(K, K_f, rtol=0, atol=1e-10 * scale)
+    # each scan's rays see only their own profile's state
+    second = ipa >= atm.npts // 2
+    nd = ctl.nd
+    assert np.abs(K[:4 * nd][:, second]).max() == 0.0
+    assert np.abs(K[4 * nd:][:, ~second]).max() == 0.0
+
+
+def test_exact_tables_take_jacfwd(capsys):
+    """A ``KERNEL = exact`` model's tables are not the fast ones and have
+    no tangent kernel: ``kernel_autodiff`` runs ``kernel_autodiff_jacfwd``
+    and names it on its package line (the ``ega`` golden's geometry and
+    tables, three rays, NLOS 40); the same model on ``KERNEL = jax`` runs
+    the tangent chain, and the two Jacobians agree to the fast tables'
+    resampling."""
+    from pathlib import Path
+
+    from test_torch_host_copies import golden_case
+    Ks = {}
+    for kernel, route in (("exact", "torch.func.jacfwd"),
+                          ("jax", "plain tangent chain")):
+        ctl, obs, atm = golden_case("ega", kernel=kernel)
+        ctl.nlos, ctl.rayds, ctl.raydz = 40, 20.0, 2.0
+        ctl.rett_zmin, ctl.rett_zmax = 10.0, 20.0
+        obs = _obs_rows(obs, slice(0, 3))
+        m = ForwardModel(ctl, directory=str(Path(ctl.tblbase).parent),
+                         device="cpu")
+        assert m.eager_tables().use_fast == (kernel == "jax")
+        Ks[kernel] = tret.kernel_autodiff(ctl, atm.copy(), obs.copy(), m)
+        assert f"; {route}" in capsys.readouterr().out
+        if kernel == "exact":
+            with pytest.raises(ValueError, match="fast tables only"):
+                m.integrate_jvp(None, None)
+    scale = np.abs(Ks["exact"]).max()
+    assert Ks["exact"].shape == Ks["jax"].shape and scale > 0
+    assert np.abs(Ks["jax"] - Ks["exact"]).max() <= 2e-2 * scale

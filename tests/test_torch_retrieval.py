@@ -211,21 +211,33 @@ def test_packages_bitwise(setup, capsys):
 
 
 def test_package_sizing_on_a_card(setup, monkeypatch):
-    """RAYPACK = 0 on a card: one package in flight, its eager bytes per
-    ray with the tangent-carrying floats times 1 + n, fits 90 % of the
-    free memory read on every call; an explicit RAYPACK reads nothing; the
-    CPU is one package.  Indices, masks and table rows count once: the
-    estimate lies strictly between the eager bytes and 1 + n times
-    them, and with no state element it is the eager bytes."""
+    """RAYPACK = 0 on a card: one package in flight on the tangent
+    kernels' path fits 90 % of the free memory read on every call; an
+    explicit RAYPACK reads nothing; the CPU is one package.  Per ray the
+    estimate is the LOS, its tangents [NLOS, 3 + 2 G + W, n] and tsurf's
+    [n], and the K rows: drad [D, n] and its masked selection in the
+    model's dtype, their float64 copy, rad and tau, and the mask; and
+    the RT tangent kernel's scratch as the library lays it out
+    (``ops.ega_jvp.scratch_lengths``, here a stand-in): a record per
+    segment and channel, the epilogue's values per channel and the
+    first-record index."""
+    from jurassic_torch.ops import ega_jvp
+
     s = setup
     m = ForwardModel(dataclasses.replace(s["ctl_t"]),
                      fast_tables=s["model"].fast_tables, device="cpu")
     n, nr = 10, 1000
+    S, G, W, D = m.ctl.nlos, m.ctl.ng, m.ctl.nw, m.ctl.nd
+    asked = []
+    monkeypatch.setattr(ega_jvp, "scratch_lengths",
+                        lambda g: asked.append(g) or (7 * g + 3, 4))
+    los = S * (6 + 2 * G + W) * 8 + S
     per_ray = tret.autodiff_ray_bytes(m, n)
-    eager = m._ray_bytes("fast")[0]
-    assert tret.autodiff_ray_bytes(m, 0) == eager
-    assert eager < per_ray < eager * (1 + n)
-    assert per_ray % eager != 0
+    records = (S * (7 * G + 3) + 4) * D * 8 + 8
+    assert per_ray == (los + (S * (3 + 2 * G + W) + 1) * n * 8 + records
+                       + D * n * (2 * 8 + 8) + 2 * D * 8 + D)
+    assert tret.autodiff_ray_bytes(m, 0) == los + records + 2 * D * 8 + D
+    assert asked == [G, G]
     assert tret.autodiff_package_size(m, nr, n) == 0       # the CPU
     m.device = torch.device("cuda", 0)
     card = _FakeCard(monkeypatch, 0)
