@@ -104,18 +104,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     eighth ray) on a three-profile track with identical profiles and
     ``REFRAC 0``, against ``IP = 1`` (2e-3 / 0.1 of max|rad|, the JAX
     test's bars), through the turbo kernel;
-13. retrieval Jacobians -- first the two tangent kernels of the
-    forward-mode Jacobian (``csrc/trace_rays_jvp.cu``,
-    ``csrc/ega_jvp_fast.cu``) against their plain versions
-    (``geometry.trace_rays_jvp_ref``, ``forward.rt_integrate_jvp_ref``)
-    on the same CUDA tensors in float64 and float32, on a small limb scan
-    in each tracer branch (9 tangents; 40 as well on the plain scan), a
-    ground-hitting scan with the brightness conversion and every 30th
-    flagship ray with the main path's own 130 tangents (the block
-    shapes and kernel instantiations the flagship runs): the tracer
-    tangent kernel's LOS bit for bit the tracer kernel's, each tangent
-    field and drad
-    within 1e-10 (float64) / 1e-3 (float32) of its max|tangent|; then the
+13. retrieval Jacobians -- first the tangent kernels of the
+    forward-mode Jacobian (``csrc/trace_rays_jvp.cu``; the RT pass's
+    record and contraction kernels, ``csrc/ega_jvp_fast.cu``) against
+    their plain versions (``geometry.trace_rays_jvp_ref``; ``ops.ega_jvp.
+    rt_jvp_records_ref`` and ``rt_jvp_contract_ref`` for each RT kernel,
+    ``forward.rt_integrate_jvp_ref`` for the RT entry) on the same CUDA
+    tensors in float64 and float32, on a small limb scan in each tracer
+    branch (9 tangents; 40 as well on the plain scan), a ground-hitting
+    scan with the brightness conversion and every 30th flagship ray with
+    the main path's own 130 tangents (the block shapes and kernel
+    instantiations the flagship runs), the plain scan at both n and the
+    flagship case also on tables whose axes differ per channel (the
+    record kernel's per-channel instantiation): the tracer tangent
+    kernel's LOS bit for bit the tracer kernel's, each tangent field, the
+    record kernel's A (per LOS field), a_surf, rad and tau, the
+    contraction and drad within 1e-10 (float64) / 1e-3 (float32) of
+    their max, whether rad, tau and A are bit for bit printed; then the
     flagship with HYDZ 20 (the hydrostatic rebuild in the seed):
     ``kernel_autodiff`` on the 130-element state (T and the 4 gases' vmr
     at the 26 levels of 10-60 km) through the tangent kernels (the main
@@ -136,8 +141,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     against the CPU's plain tangent chain on a small case (1e-10 of
     max|K|); the packages bit for bit: one package of every fourth ray
     (271) against those rays' rows of the 1084-ray run; each tangent
-    kernel's time alone at the flagship (float64 and float32), its plain
-    version's (float64) and its bound;
+    kernel's time alone at the flagship (float64 and float32; the RT
+    record and contraction kernels each), its registers, its plain
+    version's time (float64), its bound, and for the contraction one
+    ``torch.bmm`` of the same product as a yardstick;
 14. multi-GPU (torch.distributed) -- ``parallel.ShardedForwardModel`` at
     the full flagship: on an NCCL group of one process (a 1 x 1 mesh) in
     ``KERNEL = auto`` and ``pallas``, bit for bit plain ``formod``, the
@@ -190,6 +197,8 @@ N_PACKAGED_RUNS = 2
 N_MGPU_RUNS = 2          # timed sharded formods per mesh and mode
 N_NCCL_RUNS = 5          # NCCL world size 1: sharded and plain, in turns
 PHASE_SPLIT_TOL = 0.05   # the median call's parts vs its wall time
+PROFILE_TRIES = 3        # profiles of one call before a short record fails
+PROFILE_ATTEMPTS = {}    # profiled call -> the attempts it took
 AD_EST_RATIO = 2.0       # autodiff sizing estimate vs measured peak
 OUTPUTS = ("rad", "tau", "tpz", "tplon", "tplat")
 RAYPACK = 271            # the flagship's 1084 rays in 4 packages
@@ -272,19 +281,26 @@ OPS_PER_SEGMENT = 78
 #     (70), gradient and direction (27), normalisation (14), advance and
 #     state (18), the trapezoid (3) -> 190; per gas or window and step: q
 #     or k by its slope (7); per gas and step: u (12)
-#   RT, per valid segment and channel: a corner's searches, slopes and
-#     clamps (43 + 10), a gas's bilinear weights, guards and partials
-#     (47), continua with partials and the source slope (110); per
-#     tangent: the extinction's tangent (13), per gas the factor's and
-#     the running product's (14), emissivity, rad and tau (17)
+#   RT record kernel, per valid segment and channel: a corner's searches,
+#     slopes and clamps (43 + 10 with the halving; a corner whose hint
+#     holds takes about 28 fewer), a gas's bilinear weights, guards and
+#     partials (47), continua with partials and the source slope (110);
+#     its adjoint sweep: per record the emissivity, the rad/tau step's
+#     adjoints and the extinction's share of A (26), per gas the prefix
+#     product, the factor's adjoint and its share of A (13)
+#   RT contraction, per valid segment, channel, LOS field and tangent: a
+#     multiply and an add (2); per ray, channel and tangent the surface
+#     term (2)
 OPS_TRACE_JVP_STEP = 190
 OPS_TRACE_JVP_FIELD = 7
 OPS_TRACE_JVP_GAS = 12
 OPS_RT_JVP_CORNER = 53
 OPS_RT_JVP_GAS = 47
 OPS_RT_JVP_SEGMENT = 110
-OPS_RT_JVP_TAN = 30
-OPS_RT_JVP_TAN_GAS = 14
+OPS_RT_ADJ_SEGMENT = 26
+OPS_RT_ADJ_GAS = 13
+# float64 on the tensor cores (DMMA; the same data sheet): the contraction
+PEAK_FP64_TENSOR_FLOPS = 67e12
 
 
 def roughen(ft):
@@ -770,7 +786,8 @@ def profile_formod(torch, fm, atm, obs, wall_ms: float) -> None:
     time goes.  The busy share is
     taken of ``wall_ms``, the median formod time without the profiler."""
     _, wall, n, busy, ks = profiled_call(
-        torch, lambda: fm.formod(atm.copy(), obs.copy()), names=True)
+        torch, lambda: fm.formod(atm.copy(), obs.copy()), "flagship formod",
+        names=True)
     print(f"flagship formod profiled: {wall * 1e3:.1f} ms wall (with "
           f"profiler), device busy {busy:.1f} ms ({busy / wall_ms:.1%}"
           f" of the {wall_ms:.1f} ms median formod), "
@@ -992,46 +1009,62 @@ def busy_ms(ks) -> float:
     return busy / 1e6
 
 
-def profiled_call(torch, fn, names: bool = False):
+def profiled_call(torch, fn, label: str, names: bool = False, reset=None):
     """(result, wall seconds, device kernel launches, device busy ms[,
     (name, ns) events]) of ``fn()`` under torch.profiler with CUDA
     activity only (recording the host's operators too slows a
     launch-bound pass ten times over).  Busy is the union of the device
     activities' intervals (``busy_ms``); the profiler must have recorded
     every launch of the hand-written kernels (the fused kernels, the
-    tracer, the tangent kernels: two for each launch of the RT tangent
-    entry), whose time by CUDA events recorded around each launch in the
-    same call (``ega_fused.LAUNCH_EVENTS``) is printed beside its
-    own."""
+    tracer, the tangent kernels: the RT tangent entry's record and
+    contraction kernels each), whose time by CUDA events recorded around
+    each launch in the same call (``ega_fused.LAUNCH_EVENTS``) is printed
+    beside its own.  Right after a profile of a pass of some 10^5
+    launches the profiler's records have come up short (0 of 1 table
+    kernel launches once, on the H100): a call whose records miss a
+    launch is profiled again (``fn`` runs again), PROFILE_TRIES times in
+    all, and the run fails unless one attempt recorded every launch;
+    ``reset`` runs before each attempt, so that the caller's launch counts
+    are one call's.  The attempts go into PROFILE_ATTEMPTS[label], which
+    the ``kernels`` line prints."""
     from torch.profiler import ProfilerActivity, profile
 
     from jurassic_torch.ops import ega_fused
-    torch.cuda.synchronize()
-    ega_fused.LAUNCH_EVENTS = []
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    events, ega_fused.LAUNCH_EVENTS = ega_fused.LAUNCH_EVENTS, None
-    ks = device_events(prof)
     kinds = ("ega_fused_kernel", "trace_rays_kernel", "trace_rays_jvp_kernel",
-             "ega_rec_kernel", "ega_tan_kernel")
-    hand = [k[1] for k in ks if any(name in k[0] for name in kinds)]
-    by_kind = {name: sum(k[1] for k in ks if name in k[0]) / 1e6
-               for name in kinds}
-    # device kernels of one launch of each entry point (the RT tangent
-    # entry runs its record and its tangent kernel)
-    want = sum(2 if name == "jt_ega_jvp_fast" else 1 for name, _, _ in events)
-    hand_ms = sum(a.elapsed_time(b) for _, a, b in events)
-    busy, n = busy_ms(ks), len(ks)
-    if events:
-        print(f"  hand-written kernels: {len(events)} launch(es) of "
-              f"{want} kernel(s), {hand_ms:.2f} ms by CUDA events; the "
-              f"profiler recorded {len(hand)} of them "
-              f"({sum(hand) / 1e6:.2f} ms: " + ", ".join(
-                  f"{k} {v:.2f}" for k, v in by_kind.items() if v)
-              + ")", flush=True)
+             "ega_rec_kernel", "ega_jvp_contract")
+    for attempt in range(1, PROFILE_TRIES + 1):
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        ega_fused.LAUNCH_EVENTS = []
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events, ega_fused.LAUNCH_EVENTS = ega_fused.LAUNCH_EVENTS, None
+        ks = device_events(prof)
+        hand = [k[1] for k in ks if any(name in k[0] for name in kinds)]
+        by_kind = {name: sum(k[1] for k in ks if name in k[0]) / 1e6
+                   for name in kinds}
+        # one device kernel a launch (the RT tangent entry records its two
+        # kernels apart)
+        want = len(events)
+        hand_ms = sum(a.elapsed_time(b) for _, a, b in events)
+        busy, n = busy_ms(ks), len(ks)
+        if events:
+            print(f"  hand-written kernels: {len(events)} launch(es) of "
+                  f"{want} kernel(s), {hand_ms:.2f} ms by CUDA events; the "
+                  f"profiler recorded {len(hand)} of them "
+                  f"({sum(hand) / 1e6:.2f} ms: " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in by_kind.items() if v)
+                  + ")", flush=True)
+        if len(hand) == want and ks and busy > 0:
+            break
+        print(f"  profile attempt {attempt} of {PROFILE_TRIES}: the "
+              f"profiler recorded {len(hand)} of {want} hand-written "
+              f"launches and {len(ks)} device activities", flush=True)
+    PROFILE_ATTEMPTS[label] = attempt
     if len(hand) != want:
         fail("the profiler missed launches of the hand-written kernels")
     if not ks or busy <= 0:
@@ -1039,7 +1072,7 @@ def profiled_call(torch, fn, names: bool = False):
     return (out, wall, n, busy) + ((ks,) if names else ())
 
 
-def device_pass(torch, fn):
+def device_pass(torch, fn, label: str):
     """(result, milliseconds on the host clock to a synchronise, device
     kernel launches and busy ms) of ``fn()``: one timed call, one
     profiled call."""
@@ -1048,7 +1081,7 @@ def device_pass(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return (out, ms, *profiled_call(torch, fn)[2:])
+    return (out, ms, *profiled_call(torch, fn, label)[2:])
 
 
 def eager_vs_table(torch, ForwardModel, flagship, fm_p, dev):
@@ -1062,10 +1095,10 @@ def eager_vs_table(torch, ForwardModel, flagship, fm_p, dev):
     los64 = fm_e.trace(atm, obs)
     los32 = LosData(*(f.float() if f.is_floating_point() else f
                       for f in los64))
-    out_e, ms_e, n_e, busy_e = device_pass(torch,
-                                           lambda: fm_e.integrate(los64))
-    out_t, ms_t, n_t, busy_t = device_pass(torch,
-                                           lambda: fm_p.integrate(los32))
+    out_e, ms_e, n_e, busy_e = device_pass(
+        torch, lambda: fm_e.integrate(los64), "eager float64 RT pass")
+    out_t, ms_t, n_t, busy_t = device_pass(
+        torch, lambda: fm_p.integrate(los32), "table kernel RT pass")
     scale = float(out_e.rad.abs().max())
     e_rad = float((out_t.rad.double() - out_e.rad).abs().max()) / scale
     e_tau = float((out_t.tau.double() - out_e.tau).abs().max())
@@ -1151,7 +1184,7 @@ def idle_share(torch, fm, atm, obs, wall_ms: float, label: str) -> None:
     """The device's busy and idle share of one formod, taken of the
     median formod time without the profiler."""
     n, busy = profiled_call(torch, lambda: fm.formod(atm.copy(),
-                                                     obs.copy()))[2:]
+                                                     obs.copy()), label)[2:]
     print(f"{label}: device busy {busy:.1f} ms of the {wall_ms:.1f} ms "
           f"median, idle share {1 - busy / wall_ms:.1%}; {n} device kernel "
           "launches", flush=True)
@@ -1239,11 +1272,16 @@ def fd_vs_ad(K_fd, K_ad, label: str) -> float:
     return excess
 
 
+JVP_COUNTS = ("tracer tangent", "RT tangent entry", "RT record",
+              "RT contraction", "tracer", "turbo", "table")
+
+
 def jvp_launches(reset: bool = False) -> tuple:
-    """(tracer tangent, RT tangent, tracer, turbo, table) launch counts,
-    set to 0 first where ``reset``."""
+    """The launch counts of ``JVP_COUNTS``, set to 0 first where
+    ``reset``."""
     from jurassic_torch.ops import ega_fused, ega_jvp, trace, trace_jvp
     mods = ((trace_jvp, "LAUNCHES"), (ega_jvp, "LAUNCHES"),
+            (ega_jvp, "LAUNCHES_RECORD"), (ega_jvp, "LAUNCHES_CONTRACT"),
             (trace, "LAUNCHES"), (ega_fused, "LAUNCHES"),
             (ega_fused, "LAUNCHES_TABLE"))
     if reset:
@@ -1285,7 +1323,8 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
     run = lambda: fn(ctl, atm.copy(), obs.copy(), m)
     jvp_launches(reset=True)
     if profiled:
-        K, wall, launches, busy = profiled_call(torch, run)
+        K, wall, launches, busy = profiled_call(
+            torch, run, label, reset=lambda: jvp_launches(reset=True))
         on = (f"wall (CUDA-activity profiler on), {launches} device kernel "
               f"launches, device busy {busy:.1f} ms")
     else:
@@ -1301,15 +1340,14 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
           f"{pack} rays; peak "
           f"{peak / 1e9:.2f} GB against the estimate {est / 1e9:.2f} GB "
           f"({est / max(peak, 1):.2f} x); max|K| {scale:.4e}; launches "
-          f"(tracer tangent, RT tangent, tracer, turbo, table) {counts}",
-          flush=True)
+          f"({', '.join(JVP_COUNTS)}) {counts}", flush=True)
     if not (K.shape == (obs.nr * ctl.nd, n) and np.isfinite(K).all()
             and scale > 0):
         fail(f"{label}: the Jacobian is malformed")
     if not peak / AD_EST_RATIO <= est <= AD_EST_RATIO * peak:
         fail(f"{label}: the sizing estimate is not within {AD_EST_RATIO}x "
              "of the measured peak")
-    want = (0, 0, 0, 0, 0) if jacfwd else (npk, npk, 0, 0, 0)
+    want = (0,) * 7 if jacfwd else (npk,) * 4 + (0, 0, 0)
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want}")
     return K, obs.nr, npk, counts, wall
@@ -1349,30 +1387,123 @@ def rel_field_errs(torch, got: dict, ref: dict) -> dict:
     return out
 
 
+def rel_fields(torch, got, ref) -> float:
+    """Largest |got - ref| over each field (axis 2 of [R, S, F, D]) of its
+    own max|ref| (absolute where ref is 0)."""
+    return max(rel_field_errs(torch, {f: got[:, :, f] for f in
+                                      range(got.shape[2])},
+                              {f: ref[:, :, f] for f in
+                               range(ref.shape[2])}).values())
+
+
+def rt_kernels_hold(torch, args, S: int, G: int, W: int, timed=None):
+    """Each RT tangent kernel against its plain version on the same CUDA
+    tensors: the record kernel's rad, tau, A (per LOS field, of its
+    max|A|) and a_surf against ``rt_jvp_records_ref``, the contraction on
+    the record kernel's records against ``rt_jvp_contract_ref`` on the
+    same A, and the entry's drad and rad against ``rt_integrate_jvp_ref``.
+    ``timed(key, fn)`` runs each plain version ("record", "contract",
+    "rt"; it may time them).  Each dense A is freed once held, before the
+    entry and its plain version run.  Returns ({name: relative error},
+    whether rad, tau and A are bit for bit the plain versions' and the
+    count of rad lanes that are not, {kernel:
+    largest absolute difference of its own hold}, the entry's drad)."""
+    from jurassic_torch.forward import rt_integrate_jvp_ref
+    from jurassic_torch.ops import ega_jvp as ej
+    timed = timed or (lambda key, fn: fn())
+    tbl, sr, st, nu, cc, window, los, tan, flags, ig_co2, ig_h2o, bbt = args
+    rargs = (tbl, sr, st, nu, cc, window, los, flags, ig_co2, ig_h2o, bbt)
+    one = lambda a, b: rel_field_errs(torch, {"x": a}, {"x": b})["x"]
+    absd = lambda a, b: float((a - b).abs().max())
+    out_k, rec, sidx, first, asurf = ej.rt_jvp_records_cuda(*rargs)
+    out_p, A_p, as_p = timed("record", lambda: ej.rt_jvp_records_ref(*rargs))
+    A_k = ej.dense_adjoint(rec, sidx, first, S, G, W)
+    errs = {"A": rel_fields(torch, A_k, A_p), "a_surf": one(asurf, as_p),
+            "record rad": one(out_k.rad, out_p.rad),
+            "record tau": one(out_k.tau, out_p.tau)}
+    bits = {"A": torch.equal(A_k, A_p)}
+    d_abs = {"ega_jvp_record": absd(A_k, A_p)}
+    del A_p, as_p
+    dr_c = ej.rt_jvp_contract_cuda(rec, sidx, first, asurf, tan, G, W)
+    del rec, sidx
+    dr_cp = timed("contract", lambda: ej.rt_jvp_contract_ref(
+        A_k, asurf, los.valid, tan))
+    del A_k
+    torch.cuda.empty_cache()
+    errs["contraction"] = one(dr_c, dr_cp)
+    d_abs["ega_jvp_contract"] = absd(dr_c, dr_cp)
+    del dr_c, dr_cp
+    out_e, dr_e = ej.rt_jvp_fast_cuda(*args)
+    out_r, dr_r = timed("rt", lambda: rt_integrate_jvp_ref(*args))
+    errs.update(drad=one(dr_e, dr_r), rad=one(out_e.rad, out_r.rad))
+    bits.update(rad=torch.equal(out_e.rad, out_r.rad),
+                tau=torch.equal(out_e.tau, out_r.tau))
+    bits["rad lanes off"] = int((out_e.rad != out_r.rad).sum())
+    d_abs["drad"] = absd(dr_e, dr_r)
+    return errs, bits, d_abs, dr_e
+
+
+def record_block_shape_hold(torch, rargs, S: int, G: int, W: int) -> bool:
+    """Whether the record kernel's rad, tau, a_surf and A on all the rays
+    of ``rargs`` (``rt_jvp_records_cuda``'s arguments) are bit for bit its
+    outputs on the same rays in slices of fewer than one ray a
+    multiprocessor, where a block holds one ray: every lane's operations
+    are its own, so two rays sharing a block (their brackets, barriers
+    and segment bounds) must change no bit."""
+    from jurassic_torch.geometry import LosData
+    from jurassic_torch.ops import ega_jvp as ej
+    los = rargs[6]
+    R = los.p.shape[0]
+    step = torch.cuda.get_device_properties(los.p.device) \
+        .multi_processor_count - 1
+    out, rec, sidx, first, asurf = ej.rt_jvp_records_cuda(*rargs)
+    A = ej.dense_adjoint(rec, sidx, first, S, G, W)
+    del rec, sidx
+    same = True
+    for r0 in range(0, R, step):
+        sl = slice(r0, min(r0 + step, R))
+        o, rc, si, fi, a_s = ej.rt_jvp_records_cuda(
+            *rargs[:6], LosData(*(f[sl] for f in los)), *rargs[7:])
+        A_s = ej.dense_adjoint(rc, si, fi, S, G, W)
+        same = same and all(torch.equal(x, y) for x, y in (
+            (o.rad, out.rad[sl]), (o.tau, out.tau[sl]),
+            (a_s, asurf[sl]), (A_s, A[sl])))
+        del rc, si, A_s
+    return same
+
+
 def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
-    """The two tangent kernels against their plain versions on the same
-    CUDA tensors, float64 and float32: a small limb scan (37 rays, NLOS
-    120, 4 gases, 9 channels) as it is, with AD_JVP_CASE_N and
-    AD_JVP_WIDE_N random profile tangents, and with AD_JVP_CASE_N in each
-    branch of ``workloads.TRACE_BRANCHES`` and on a ground-hitting scan
-    with the brightness conversion; and every 30th ray of the flagship
-    retrieval (37 rays, 100 channels, its tables) with the main path's
-    own inputs, the seed's n = 130 tangents through ``package_tangents``:
-    the block shapes and kernel instantiations that the flagship
-    Jacobian runs.  The tracer tangent kernel's LOS bit for bit the
-    tracer kernel's; each LOS tangent field within AD_KERNEL_TOL of its
-    max; drad likewise.  Returns ({dtype: largest relative error},
-    largest absolute drad difference in float64)."""
-    from jurassic_torch.forward import _obs_rows, rt_integrate_jvp_ref
+    """The tangent kernels against their plain versions on the same CUDA
+    tensors, float64 and float32: a small limb scan (37 rays, NLOS 120, 4
+    gases, 9 channels) as it is, with AD_JVP_CASE_N and AD_JVP_WIDE_N
+    random profile tangents, and with AD_JVP_CASE_N in each branch of
+    ``workloads.TRACE_BRANCHES`` and on a ground-hitting scan with the
+    brightness conversion; and every 30th ray of the flagship retrieval
+    (37 rays, 100 channels, its tables), in float32 also every 4th (271
+    rays), with the main path's own inputs, the seed's n = 130 tangents
+    through ``package_tangents``: the kernel instantiations that the
+    flagship Jacobian runs, and its record blocks of two rays (a block
+    takes min(256 // D, R // multiprocessors) rays, at least one: one ray
+    below 264 rays on the H100's 132, two at 271 and at the flagship's
+    1084; ``jvp_timing`` holds every flagship ray in float64).
+    The scan at both n and the flagship cases run again on tables whose
+    axes differ per channel (``workloads.perturbed_axes``): the record
+    kernel's per-channel instantiation.  The tracer tangent kernel's LOS
+    bit for bit the tracer kernel's; each LOS tangent field within
+    AD_KERNEL_TOL of its max; each RT kernel against its plain version
+    (``rt_kernels_hold``) and drad likewise.  Returns ({dtype: largest
+    relative error}, {RT kernel or drad: largest absolute difference in
+    float64}, {RT hold: largest relative error})."""
+    from jurassic_torch.forward import _obs_rows
     from jurassic_torch.geometry import (los_tangent_fields,
                                          trace_rays_jvp_ref)
-    from jurassic_torch.ops.ega_jvp import rt_jvp_fast_cuda
     from jurassic_torch.ops.trace import trace_rays_cuda
     from jurassic_torch.ops.trace_jvp import trace_rays_jvp_cuda
     from jurassic_torch.retrieval import autodiff_seed, package_tangents
-    from jurassic_torch.workloads import TRACE_BRANCHES, trace_branch
+    from jurassic_torch.workloads import (TRACE_BRANCHES, perturbed_axes,
+                                          trace_branch)
 
-    def small(br, n):
+    def small(br, n, axes=False):
         def inputs(dtype):
             ctl, ft, atm, obs = small_limb(ng=4, nd=9, nr=37, nlos=120)
             if br == "ground":
@@ -1380,28 +1511,42 @@ def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
                 obs.vpz[::2] = -20.0
             elif br:
                 trace_branch(br, ctl, atm, obs)
+            if axes:
+                ft = perturbed_axes(ft, seed=1)
             return (ctl, obs.nr, *jvp_case_inputs(
                 torch, ForwardModel, ctl, ft, atm, obs, dev, dtype, n))
         return inputs
 
-    def flagship_30(dtype):
-        ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
-        m = ForwardModel(ctl, fast_tables=ft, device=dev, dtype=dtype)
-        obs = _obs_rows(obs, slice(0, None, 30))
-        return (ctl, obs.nr, m, *package_tangents(
-            ctl, atm, obs, m, autodiff_seed(ctl, atm, m)))
+    def flagship_rows(step, axes):
+        def inputs(dtype):
+            ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
+            if axes:
+                ft = perturbed_axes(ft, seed=2)
+            m = ForwardModel(ctl, fast_tables=ft, device=dev, dtype=dtype)
+            obs = _obs_rows(obs, slice(0, None, step))
+            return (ctl, obs.nr, m, *package_tangents(
+                ctl, atm, obs, m, autodiff_seed(ctl, atm, m)))
+        return inputs
 
-    def cases():
+    def cases(dtype):
         yield "limb", small(None, AD_JVP_CASE_N)
         yield f"limb/n{AD_JVP_WIDE_N}", small(None, AD_JVP_WIDE_N)
         for br in TRACE_BRANCHES + ("ground",):
             yield br, small(br, AD_JVP_CASE_N)
-        yield "flagship/30", flagship_30
+        yield "flagship/30", flagship_rows(30, False)
+        yield "limb, per-channel axes", small(None, AD_JVP_CASE_N, True)
+        yield (f"limb/n{AD_JVP_WIDE_N}, per-channel axes",
+               small(None, AD_JVP_WIDE_N, True))
+        yield "flagship/30, per-channel axes", flagship_rows(30, True)
+        if dtype == torch.float32:     # float64: jvp_timing, every ray
+            yield "flagship/4", flagship_rows(4, False)
+            yield "flagship/4, per-channel axes", flagship_rows(4, True)
     worst = {"float64": 0.0, "float32": 0.0}
-    worst_abs = 0.0
+    worst_rt = {}
+    worst_abs = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype)[6:]
-        for label, inputs in cases():
+        for label, inputs in cases(dtype):
             ctl, nr, m, prof, ptan, geo = inputs(dtype)
             G, W = ctl.ng, ctl.nw
             args = (prof, ptan, geo, ctl.rayds, ctl.raydz, bool(ctl.refrac),
@@ -1414,44 +1559,86 @@ def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
             errs = rel_field_errs(torch, los_tangent_fields(tan_k, G, W),
                                   los_tangent_fields(tan_r, G, W))
             e = m.eager_tables()
+            if e.tbl.uniform == ("per-channel" in label):
+                fail(f"{label}: the tables' uniform flag is "
+                     f"{e.tbl.uniform}")
             rt = (e.tbl, m.sr, m.st, m.nu, e.cc, e.window, los_k, tan_k,
                   m.flags, m.ig_co2, m.ig_h2o, bool(ctl.write_bbt))
-            out_k, dr_k = rt_jvp_fast_cuda(*rt)
-            out_r, dr_r = rt_integrate_jvp_ref(*rt)
-            errs["drad"] = rel_field_errs(torch, {"d": dr_k},
-                                          {"d": dr_r})["d"]
-            e_rad = rel_field_errs(torch, {"r": out_k.rad},
-                                   {"r": out_r.rad})["r"]
+            rt_errs, bits, d_abs, dr_k = rt_kernels_hold(torch, rt,
+                                                         ctl.nlos, G, W)
+            if label.startswith("flagship/4"):
+                bits["record blocks"] = record_block_shape_hold(
+                    torch, rt[:7] + rt[8:], ctl.nlos, G, W)
+            errs["drad"] = rt_errs["drad"]
             worst[name] = max(worst[name], *errs.values())
+            for k, v in rt_errs.items():
+                worst_rt[k] = max(worst_rt.get(k, 0.0), v)
             if dtype == torch.float64:
-                worst_abs = max(worst_abs, float((dr_k - dr_r).abs().max()))
+                for k, v in d_abs.items():
+                    worst_abs[k] = max(worst_abs.get(k, 0.0), v)
             print(f"tangent kernels vs plain, {label}, {name}, n = "
-                  f"{ptan.d.shape[2]}: tracer LOS "
-                  f"bit for bit {bitwise}, flags {int(flag.sum())}; of "
+                  f"{ptan.d.shape[2]}, uniform axes {e.tbl.uniform}: tracer "
+                  f"LOS bit for bit {bitwise}, flags {int(flag.sum())}; of "
                   "max|tangent|: " + ", ".join(
                       f"{k} {v:.1e}" for k, v in errs.items())
-                  + f"; rad {e_rad:.1e}", flush=True)
+                  + "; RT kernels: " + ", ".join(
+                      f"{k} {v:.1e}" for k, v in rt_errs.items())
+                  + "; bit for bit " + ", ".join(
+                      f"{k} {v}" for k, v in bits.items()), flush=True)
             finite = bool(torch.isfinite(dr_k).all())
             if not (bitwise and not flag.any() and finite
-                    and max(errs.values()) <= AD_KERNEL_TOL[name]):
+                    and bits.get("record blocks", True)
+                    and max(errs.values()) <= AD_KERNEL_TOL[name]
+                    and max(rt_errs.values()) <= AD_KERNEL_TOL[name]):
                 fail(f"tangent kernels vs plain versions ({label}, {name})")
     print(f"tangent kernels vs plain versions: largest {worst} of "
-          f"max|tangent| (bars {AD_KERNEL_TOL})", flush=True)
-    return worst, worst_abs
+          f"max|tangent|, RT kernels' own holds {worst_rt} (bars "
+          f"{AD_KERNEL_TOL})", flush=True)
+    return worst, worst_abs, worst_rt
+
+
+def kernel_ms_each(torch, fn, names: tuple, n: int) -> dict:
+    """{name: median milliseconds} of the launches of each of ``names``
+    over ``n`` calls of ``fn`` (``kernel_ms``'s CUDA events)."""
+    from jurassic_torch.ops import ega_fused
+    fn()
+    torch.cuda.synchronize()
+    before, ega_fused.LAUNCH_EVENTS = ega_fused.LAUNCH_EVENTS, []
+    try:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        ms = {k: [a.elapsed_time(b) for name, a, b in ega_fused.LAUNCH_EVENTS
+                  if name == k] for k in names}
+    finally:
+        ega_fused.LAUNCH_EVENTS = before
+    if any(len(v) != n for v in ms.values()):
+        fail(f"launches of {names} recorded: "
+             f"{[len(v) for v in ms.values()]}, not {n} each")
+    return {k: statistics.median(v) for k, v in ms.items()}
 
 
 def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
     """At the flagship, n = 130, in ``dtype``: each tangent kernel's time
-    alone (CUDA events around each launch, median of 5, after a warm-up),
-    its plain version's (one run, float64 only: the plain RT pass takes
-    tens of GB in float32 and float64 alike), and its bound: each input
-    read once and each output written once over the HBM rate, the
-    operations (``OPS_TRACE_JVP_*``, ``OPS_RT_JVP_*``, the tracer's own
-    ``OPS_TRACE_*`` once a ray) over the dtype's peak.  Returns
-    {name: {ms, plain_ms, bound_ms, bound_by, ...}}."""
-    from jurassic_torch.forward import rt_integrate_jvp_ref
+    alone (CUDA events around each launch, median of 5, after a warm-up;
+    the RT entry's record and contraction kernels each), its plain
+    version's (one run, float64 only: ``trace_rays_jvp_ref``,
+    ``rt_jvp_records_ref``, ``rt_jvp_contract_ref`` and, for the RT entry
+    as a whole, ``rt_integrate_jvp_ref``, which takes tens of GB in
+    float32 and float64 alike; their outputs hold the RT kernels on every
+    flagship ray, ``rt_kernels_hold``), the contraction's yardstick (one
+    ``torch.bmm`` of the rays' dense A and LOS tangents, median of 3), the
+    registers, and each kernel's bound: each input read once and each
+    output written once over the HBM rate, the operations
+    (``OPS_TRACE_JVP_*``, ``OPS_RT_*``, the tracer's own ``OPS_TRACE_*``
+    once a ray) over the dtype's peak (the contraction's float64 on the
+    tensor cores); the record kernel also without its hints and with
+    per-channel brackets on the same tables.  Returns ({name: {ms,
+    plain_ms, bound_ms, bound_by, ...}}, the float64 run's RT holds
+    (``rt_kernels_hold``'s relative errors and absolute differences) or
+    None)."""
     from jurassic_torch.geometry import trace_rays_jvp_ref
-    from jurassic_torch.ops.ega_jvp import rt_jvp_fast_cuda
+    from jurassic_torch.ops import ega_jvp as ej
     from jurassic_torch.ops.trace_jvp import trace_rays_jvp_cuda
     from jurassic_torch.retrieval import autodiff_seed, package_tangents
     ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
@@ -1464,31 +1651,73 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
     e = m.eager_tables()
     rargs = (e.tbl, m.sr, m.st, m.nu, e.cc, e.window, los, tan, m.flags,
              m.ig_co2, m.ig_h2o, bool(ctl.write_bbt))
-    ms_t = kernel_ms(torch, lambda: trace_rays_jvp_cuda(*targs),
-                     "jt_trace_rays_jvp", 5)
-    ms_r = kernel_ms(torch, lambda: rt_jvp_fast_cuda(*rargs),
-                     "jt_ega_jvp_fast", 5)
-    plain = {}
-    if dtype == torch.float64:
-        for key, fn in (("trace", lambda: trace_rays_jvp_ref(
-                ctl, prof, ptan, geo)),
-                        ("rt", lambda: rt_integrate_jvp_ref(*rargs))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            plain[key] = (time.perf_counter() - t0) * 1e3
-            del out
-            torch.cuda.empty_cache()
+    pargs = rargs[:7] + rargs[8:]
     R, L = prof.z.shape
     G, W, D, S = ctl.ng, ctl.nw, ctl.nd, ctl.nlos
+    F = 3 + 2 * G + W
     n = ptan.d.shape[2]
+    ms_t = kernel_ms(torch, lambda: trace_rays_jvp_cuda(*targs),
+                     "jt_trace_rays_jvp", 5)
+    ms_r = kernel_ms_each(torch, lambda: ej.rt_jvp_fast_cuda(*rargs),
+                          ("jt_ega_jvp_record", "jt_ega_jvp_contract"), 5)
+    # the record kernel's two decisions on these tables undone: the
+    # corner searches without hints, the brackets per channel
+    ablated = {}
+    for key, tbl in (("ms_without_hints", e.tbl._replace(monotone=False)),
+                     ("ms_per_channel_brackets",
+                      e.tbl._replace(uniform=False))):
+        a2 = (tbl,) + rargs[1:]
+        ablated[key] = kernel_ms_each(
+            torch, lambda a2=a2: ej.rt_jvp_fast_cuda(*a2),
+            ("jt_ega_jvp_record",), 3)["jt_ega_jvp_record"]
+    plain = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain[key] = (time.perf_counter() - t0) * 1e3
+        return out
+    hold = None
+    if dtype == torch.float64:
+        timed("trace", lambda: trace_rays_jvp_ref(ctl, prof, ptan, geo))
+        torch.cuda.empty_cache()
+        # the plain runs hold the kernels on every flagship ray, at the
+        # record kernel's block shape of the main path (two rays a block)
+        errs, bits, d_abs, _ = rt_kernels_hold(torch, rargs, S, G, W, timed)
+        torch.cuda.empty_cache()
+        bits["record blocks"] = record_block_shape_hold(torch, pargs, S, G,
+                                                        W)
+        torch.cuda.empty_cache()
+        hold = (errs, d_abs)
+        print(f"RT kernels vs plain versions at the flagship ({R} rays, "
+              f"float64, n = {n}): " + ", ".join(
+                  f"{k} {v:.1e}" for k, v in errs.items())
+              + "; bit for bit " + ", ".join(
+                  f"{k} {v}" for k, v in bits.items()), flush=True)
+        if not (max(errs.values()) <= AD_KERNEL_TOL["float64"]
+                and bits["record blocks"]):
+            fail("the RT tangent kernels vs their plain versions at the "
+                 "flagship (float64)")
+    # the yardstick: one batched product of each ray's dense A [D, S F]
+    # (zero on invalid segments) with its LOS tangents [S F, n]
+    _, rec, sidx, first, _ = ej.rt_jvp_records_cuda(*pargs)
+    Ad = ej.dense_adjoint(rec, sidx, first, S, G, W).permute(
+        0, 3, 1, 2).reshape(R, D, S * F).contiguous()
+    del rec, sidx
+    Bd = tan.seg.reshape(R, S * F, n)
+    lib = cuda_ms(torch, lambda: torch.bmm(Ad, Bd), 3)
+    del Ad, Bd
+    torch.cuda.empty_cache()
     b = prof.z.element_size()
     peak = PEAK_FP64_FLOPS if dtype == torch.float64 else PEAK_FP32_FLOPS
+    peak_mma = (PEAK_FP64_TENSOR_FLOPS if dtype == torch.float64
+                else PEAK_FP32_FLOPS)
     n_active = int(los.valid.sum())
 
-    def bound(n_bytes, ops):
-        t_b, t_o = n_bytes / PEAK_HBM_BYTES, ops / peak
+    def bound(n_bytes, ops, peak_ops=peak):
+        t_b, t_o = n_bytes / PEAK_HBM_BYTES, ops / peak_ops
         return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else
                 "operations", n_bytes, ops)
     # tracer: profiles, geometry, profile tangents and window indices in;
@@ -1501,31 +1730,54 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
              + R * OPS_TRACE_RAY
              + R * S * n * (OPS_TRACE_JVP_STEP + OPS_TRACE_JVP_FIELD
                             * (G + W) + OPS_TRACE_JVP_GAS * G))
-    # RT: the LOS fields it reads, their tangents and the tables in; rad,
-    # tau and drad out; the work of the valid segments
+    # record kernel: the LOS fields it reads and the tables in; rad, tau,
+    # A of the valid segments, their segment indices and a_surf out
     r_bytes = (sum(x.numel() * x.element_size() for x in (
         los.p, los.t, los.ds, los.q, los.k, los.u, los.valid, los.tsurf,
-        *tan, e.tbl.eps, e.tbl.log2_u0, e.tbl.p, e.tbl.t))
+        e.tbl.eps, e.tbl.log2_u0, e.tbl.p, e.tbl.t))
         + 4 * (e.tbl.nu.numel() + e.tbl.nt.numel() + e.tbl.np_.numel())
         + e.tbl.valid.numel() + m.sr.numel() * b
-        + (2 * R * D + R * D * n) * b)
+        + 3 * R * D * b + n_active * (F * D * b + 4))
     r_ops = n_active * D * (4 * G * OPS_RT_JVP_CORNER + G * OPS_RT_JVP_GAS
-                            + OPS_RT_JVP_SEGMENT
-                            + n * (OPS_RT_JVP_TAN + G * OPS_RT_JVP_TAN_GAS))
+                            + OPS_RT_JVP_SEGMENT + OPS_RT_ADJ_SEGMENT
+                            + G * OPS_RT_ADJ_GAS)
+    # contraction: A and the LOS tangents of the valid segments, their
+    # indices, tsurf's tangents and a_surf in; drad out
+    c_bytes = (n_active * (F * D * b + F * n * b + 4) + R * n * b
+               + R * D * b + 8 * (R + 1) + R * D * n * b)
+    c_ops = 2 * n_active * F * D * n + 2 * R * D * n
+    reg_rec, reg_con = ej.registers(G, W, S, e.tbl.uniform, dtype)
     out = {}
-    for key, name, ms, (b_ms, b_by, nb, ops) in (
-            ("trace", "trace_rays_jvp", ms_t, bound(t_bytes, t_ops)),
-            ("rt", "ega_jvp_fast", ms_r, bound(r_bytes, r_ops))):
+    for key, name, ms, lib_ms, (b_ms, b_by, nb, ops), reg in (
+            ("trace", "trace_rays_jvp", ms_t, None, bound(t_bytes, t_ops),
+             None),
+            ("record", "ega_jvp_record", ms_r["jt_ega_jvp_record"], None,
+             bound(r_bytes, r_ops), reg_rec),
+            ("contract", "ega_jvp_contract", ms_r["jt_ega_jvp_contract"],
+             lib, bound(c_bytes, c_ops, peak_mma), reg_con)):
         out[name] = {"ms": ms, "plain_ms": plain.get(key),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "bytes": nb, "operations": ops}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "bytes": nb, "operations": ops, "registers": reg}
         print(f"{name} at the flagship ({R} rays, {n_active} valid "
               f"segments, n = {n}, {str(dtype)[6:]}): kernel {ms:.3f} ms "
               f"(median of 5), plain version "
               + (f"{plain[key]:.1f} ms" if key in plain else "not timed")
+              + (f", torch.bmm {lib_ms:.3f} ms" if lib_ms else "")
               + f"; bound {b_ms:.3f} ms by {b_by} ({nb / 1e9:.2f} GB, "
-              f"{ops / 1e9:.1f} GFLOP)", flush=True)
-    return out
+              f"{ops / 1e9:.1f} GFLOP); registers {reg}", flush=True)
+    both = ms_r["jt_ega_jvp_record"] + ms_r["jt_ega_jvp_contract"]
+    print(f"RT tangent entry at the flagship, {str(dtype)[6:]}: both kernels "
+          f"{both:.3f} ms, plain version (rt_integrate_jvp_ref) "
+          + (f"{plain['rt']:.1f} ms" if "rt" in plain else "not timed"),
+          flush=True)
+    print(f"ega_jvp_record, {str(dtype)[6:]}: without hints "
+          f"{ablated['ms_without_hints']:.3f} ms, with per-channel brackets "
+          f"{ablated['ms_per_channel_brackets']:.3f} ms (median of 3; "
+          f"both decisions taken: {ms_r['jt_ega_jvp_record']:.3f} ms)",
+          flush=True)
+    out["ega_jvp_record"].update(entry_ms=both, entry_plain_ms=plain.get(
+        "rt"), **ablated)
+    return out, hold
 
 
 def jvp_dispatch(torch, dev, n: int = 130, chain: int = 200) -> None:
@@ -1598,8 +1850,8 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     from jurassic_torch.ops import trace as ktrace
     from jurassic_torch.retrieval import IDXT, atm2x, kernel, kernel_autodiff
 
-    worst, worst_abs = jvp_kernels_check(torch, ForwardModel, flagship,
-                                         small_limb, dev)
+    worst, worst_abs, worst_rt = jvp_kernels_check(
+        torch, ForwardModel, flagship, small_limb, dev)
     K64, nr, npk, counts64, wall64 = autodiff_run(
         torch, ForwardModel, flagship, dev, torch.float64,
         "flagship retrieval autodiff (tangent kernels)", profiled=False)
@@ -1717,23 +1969,47 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     torch.cuda.empty_cache()
 
     # each tangent kernel at the flagship, float64 and float32
-    rec = jvp_timing(torch, ForwardModel, flagship, dev, torch.float64)
-    rec32 = jvp_timing(torch, ForwardModel, flagship, dev, torch.float32)
-    for i, name in enumerate(("trace_rays_jvp", "ega_jvp_fast")):
+    rec, (errs64, abs64) = jvp_timing(torch, ForwardModel, flagship, dev,
+                                      torch.float64)
+    rec32, _ = jvp_timing(torch, ForwardModel, flagship, dev, torch.float32)
+    for k, v in errs64.items():
+        worst_rt[k] = max(worst_rt.get(k, 0.0), v)
+    for k, v in abs64.items():
+        worst_abs[k] = max(worst_abs.get(k, 0.0), v)
+    errs_of = {"trace_rays_jvp": worst, "ega_jvp_record": {
+        k: v for k, v in worst_rt.items() if k in ("A", "a_surf",
+                                                   "record rad",
+                                                   "record tau")},
+        "ega_jvp_contract": {k: v for k, v in worst_rt.items()
+                             if k in ("contraction", "drad")}}
+    for i, name in ((0, "trace_rays_jvp"), (2, "ega_jvp_record"),
+                    (3, "ega_jvp_contract")):
         rec[name].update(
             launches=counts64[i],
             launches_on=f"flagship kernel_autodiff, n = 130, float64, "
                         f"{npk} package(s)",
-            launches_f32=counts32[i], max_abs_err=worst_abs,
-            max_abs_err_of="largest |drad| difference, the RT tangent "
-                           "kernel on the tracer tangent kernel's LOS against "
-                           "the plain versions, float64, the small "
-                           "cases and every 30th flagship ray at n = 130",
-            max_rel_err=worst,
+            launches_f32=counts32[i],
+            max_abs_err=worst_abs.get(name, worst_abs["drad"]),
+            max_abs_err_of=("largest |A| difference from "
+                            "rt_jvp_records_ref" if i == 2 else
+                            "largest |drad| difference from "
+                            "rt_jvp_contract_ref on the same A" if i == 3
+                            else "largest |drad| difference, the RT tangent "
+                            "kernels on the tracer tangent kernel's LOS "
+                            "against the plain versions")
+            + ", float64, the small cases and every 30th flagship ray "
+              "at n = 130 (uniform and per-channel axes), and every "
+              "flagship ray",
+            max_rel_err=errs_of[name],
             ms_of="the kernel alone at the flagship in float64, CUDA "
                   "events around each launch",
             ms_f32=rec32[name]["ms"], bound_ms_f32=rec32[name]["bound_ms"],
-            bound_by_f32=rec32[name]["bound_by"])
+            bound_by_f32=rec32[name]["bound_by"],
+            library_ms_f32=rec32[name]["library_ms"],
+            registers_f32=rec32[name]["registers"])
+    rec["ega_jvp_record"].update(**{
+        k + "_f32": rec32["ega_jvp_record"][k] for k in (
+            "entry_ms", "ms_without_hints", "ms_per_channel_brackets")})
     return (fd_launches["auto"][0], fd_launches["pallas"][1],
             fd_launches["auto"][2]), rec
 
@@ -2322,11 +2598,13 @@ def main() -> None:
          "jacobian_launches": fd_trace,
          "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
                                  "auto, n = 5 (6 formods)"},
-        *({"name": name, "route": "cuda", "library_ms": None,
-           "source": f"jurassic_torch/csrc/{name}.cu",
+        *({"name": name, "route": "cuda",
+           "source": "jurassic_torch/csrc/" + ("trace_rays_jvp.cu" if
+                                               name == "trace_rays_jvp" else
+                                               "ega_jvp_fast.cu"),
            "replaces": "jurassic_tpu/retrieval.py:281", **r}
           for name, r in jvp_rec.items()),
-        *probe_records]}), flush=True)
+        *probe_records], "profile_attempts": PROFILE_ATTEMPTS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

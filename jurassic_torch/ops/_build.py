@@ -56,10 +56,16 @@ ENTRY_POINTS = {
     "jt_trace_rays_jvp": [_P] * 29 + [_I] * 6 + [_D, _D, _I, _I]
     + [_D] * 5 + [_I, _P],
     "jt_trace_jvp_smem_bytes": [_I] * 5 + [_P],
-    # 8 table tensors, 18 others, 3 scratch; R S G W D P T K n_src n
-    # flags ig_co2 ig_h2o bbt; 8 constants; is_double stream
-    "jt_ega_jvp_fast": [_P] * 29 + [_I] * 14 + [_D] * 8 + [_I, _P],
-    "jt_ega_jvp_scratch": [_I, _P, _P],             # G rec epi
+    # 8 table tensors, 13 LOS and others, first, 3 scratch, rad, tau; R S
+    # G W D P T K n_src flags ig_co2 ig_h2o bbt uniform hint; 8 constants;
+    # is_double stream
+    "jt_ega_jvp_record": [_P] * 27 + [_I] * 15 + [_D] * 8 + [_I, _P],
+    # records, segment indices, first, LOS and tsurf tangents, a_surf,
+    # drad; R S G W D n is_double stream
+    "jt_ega_jvp_contract": [_P] * 7 + [_I] * 7 + [_P],
+    "jt_ega_jvp_scratch": [_I, _I, _P, _P],         # G W rec epi
+    # G W S uniform is_double; out: record, contraction registers
+    "jt_ega_jvp_registers": [_I] * 5 + [_P, _P],
 }
 
 _lib = None

@@ -84,7 +84,11 @@ class EgaDeviceTables(NamedTuple):
 
 class FastDeviceTables(NamedTuple):
     """FastTables on the device (payloads f32); ``p`` and ``t`` with the
-    searched axis last, the rest in the FastTables layout."""
+    searched axis last, the rest in the FastTables layout.  ``uniform``
+    and ``monotone`` are facts of the tables, decided once on upload
+    (:func:`axes_uniform`, :func:`rows_monotone`): the RT tangent kernel
+    brackets once per (segment, gas) where the axes are the same in every
+    channel, and hints its corner searches where the rows are monotone."""
 
     np_: torch.Tensor      # [G, D]
     nt: torch.Tensor       # [G, P, D]
@@ -94,6 +98,8 @@ class FastDeviceTables(NamedTuple):
     log2_u0: torch.Tensor  # [G, P, T, D]
     eps: torch.Tensor      # [G, P, T, K, D]
     valid: torch.Tensor    # [G, P, T, D] bool
+    uniform: bool = False
+    monotone: bool = False
 
 
 def _ten(a, device):
@@ -113,14 +119,51 @@ def ega_tables_to_device(tbl: EgaTables, device) -> EgaDeviceTables:
 
 
 def fast_tables_to_device(tbl: FastTables, device) -> FastDeviceTables:
-    """Upload FastTables (``forward.py:60-65`` of the JAX package)."""
+    """Upload FastTables (``forward.py:60-65`` of the JAX package), with
+    the two decisions the RT tangent kernel takes from the tables."""
     def t(a, *perm):
         return _ten(a, device).permute(*perm).contiguous()
     return FastDeviceTables(
         np_=_ten(tbl.np_, device).long(), nt=_ten(tbl.nt, device).long(),
         p=t(tbl.p, 0, 2, 1), t=t(tbl.t, 0, 1, 3, 2),
         nu=_ten(tbl.nu, device).long(), log2_u0=_ten(tbl.log2_u0, device),
-        eps=_ten(tbl.eps, device), valid=_ten(tbl.valid, device))
+        eps=_ten(tbl.eps, device), valid=_ten(tbl.valid, device),
+        uniform=axes_uniform(tbl), monotone=rows_monotone(tbl))
+
+
+def _same_bits(a: np.ndarray) -> bool:
+    """Whether every channel (last axis) of ``a`` holds the bits of
+    channel 0."""
+    a = np.ascontiguousarray(a)
+    u = a.view(np.uint8).reshape(*a.shape, a.itemsize)
+    return bool((u == u[..., :1, :]).all())
+
+
+def axes_uniform(tbl: FastTables) -> bool:
+    """Whether the (p, T) axes and their counts are bitwise the same in
+    every channel: then channel 0's count searches (:func:`_count_index`)
+    give every channel's bracket, and the RT tangent kernel brackets once
+    per (segment, gas) for all of them.  Bitwise, not ``np.allclose``: an
+    axis one ulp apart can bracket a point differently."""
+    return all(_same_bits(a) for a in (tbl.np_, tbl.nt, tbl.p, tbl.t))
+
+
+def rows_monotone(tbl: FastTables) -> bool:
+    """Whether every eps row is non-decreasing over its ``nu`` points
+    (no NaN; ``nu`` at most K): there the fixed halving of the eps -> u
+    inversion has one answer a hint can be checked against
+    (``ops.ega_jvp.hinted_halving``)."""
+    G, P, T, K, D = tbl.eps.shape
+    nu = np.asarray(tbl.nu)
+    if (nu > K).any():
+        return False
+    k = np.arange(1, K)[:, None]
+    for g in range(G):                   # a gas at a time: 1/G of the bytes
+        e = np.asarray(tbl.eps[g])
+        live = k < nu[g][:, :, None, :]  # [P, T, K - 1, D]: both ends in nu
+        if not ((e[:, :, 1:] >= e[:, :, :-1]) | ~live).all():
+            return False
+    return True
 
 
 def _brackets(tbl, p, t, G, D):

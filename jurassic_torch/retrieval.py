@@ -176,10 +176,11 @@ def autodiff_ray_bytes(model: "ForwardModel", n: int,
     the LOS (``ForwardModel.ray_terms``' ``los``), its tangents
     [NLOS, 3 + 2 G + W, n] and tsurf's [n] in the model's dtype, the RT
     tangent kernel's scratch (``ops.ega_jvp.scratch_lengths``, the
-    library's count: a record per segment and channel, counted for every
-    one of the NLOS segments, at most that many are valid, and the
-    epilogue's values per channel), and the K rows: drad [D, n] and its
-    masked selection in the model's dtype, their float64 copy, the RT
+    library's count: a record per segment and channel and its segment
+    index, counted for every one of the NLOS segments, at most that many
+    are valid, and the epilogue's values per channel), and the K rows:
+    drad [D, n] and its masked selection in the model's dtype, their
+    float64 copy, the RT
     pass's rad and tau, and the mask.  The profile tangents
     are per atm point [N, 2 + G + W, n], made once per Jacobian before
     the free memory is read, and not counted here.
@@ -204,8 +205,8 @@ def autodiff_ray_bytes(model: "ForwardModel", n: int,
     b = torch.empty((), dtype=model.dtype).element_size()
     los = sum(model.ray_terms("fast")["los"])
     tangents = (S * (3 + 2 * G + W) + 1) * n * b
-    rec_len, epi_len = scratch_lengths(G)
-    records = (S * rec_len + epi_len) * D * b + 8
+    rec_len, epi_len = scratch_lengths(G, W)
+    records = (S * rec_len + epi_len) * D * b + S * 4 + 8
     rows = D * n * (2 * b + 8) + 2 * D * b + D
     return los + tangents + records + rows
 

@@ -43,6 +43,18 @@ def small_limb(ng: int, nd: int, nr: int, nlos: int = 48,
     return ctl, ft, synthetic_atm(ctl), limb_workload(ctl, nr)
 
 
+def perturbed_axes(ft, seed: int = 0):
+    """FastTables ``ft`` with each channel's own p and T axes: every p
+    node moved by up to 1e-3 of itself, every T node by up to 0.3 K
+    (seeded; the rows stay ascending on the synthetic grids), so that no
+    two channels share a bracket search (``ops.ega.axes_uniform`` is
+    False) -- the RT tangent kernel's per-channel instantiation."""
+    rng = np.random.default_rng(seed)
+    p = ft.p * (1.0 + 1e-3 * rng.uniform(-1.0, 1.0, ft.p.shape))
+    t = ft.t + 0.3 * rng.uniform(-1.0, 1.0, ft.t.shape)
+    return ft._replace(p=p, t=t)
+
+
 def scrambled_los(los: LosData, seed: int = 0) -> LosData:
     """``los`` with its rays in a random order (from ``seed``), every
     seventh ray emptied (``np_`` = 0, no valid segment) and every seventh

@@ -101,5 +101,6 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
         "jt_ega_fused_turbo", "jt_ega_fused_table", "jt_peak_fma",
         "jt_peak_sfu", "jt_peak_copy", "jt_trace_rays",
         "jt_trace_fast_ops_check", "jt_trace_smem_bytes",
-        "jt_trace_rays_jvp", "jt_trace_jvp_smem_bytes", "jt_ega_jvp_fast",
-        "jt_ega_jvp_scratch"}
+        "jt_trace_rays_jvp", "jt_trace_jvp_smem_bytes", "jt_ega_jvp_record",
+        "jt_ega_jvp_contract", "jt_ega_jvp_scratch",
+        "jt_ega_jvp_registers"}

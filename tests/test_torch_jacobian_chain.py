@@ -103,3 +103,65 @@ def test_exact_tables_take_jacfwd(capsys):
     scale = np.abs(Ks["exact"]).max()
     assert Ks["exact"].shape == Ks["jax"].shape and scale > 0
     assert np.abs(Ks["jax"] - Ks["exact"]).max() <= 2e-2 * scale
+
+
+# The RT tangent kernel's hinted corner search (``ops.ega_jvp.
+# hinted_halving``) on monotone rows (``ops.ega.rows_monotone``).
+
+def _halving_cases(rows, nks, K, rng, n):
+    from jurassic_torch.ops.ega_jvp import fixed_halving, hinted_halving
+    hits = 0
+    for _ in range(n):
+        i = rng.integers(len(rows))
+        row, nk = rows[i], int(nks[i])
+        pick = rng.integers(4)
+        if pick == 0:                   # a value of the row itself
+            target = float(row[rng.integers(max(nk, 1))])
+        elif pick == 1:                 # below or above the row
+            target = float(row[0]) - 1.0 if rng.integers(2) else \
+                float(row[max(nk - 1, 0)]) + 1.0
+        elif pick == 2:
+            target = float("nan")
+        else:
+            target = float(rng.uniform(row[0], row[max(nk - 1, 0)]))
+        want = fixed_halving(row, nk, K, target)
+        for hint in (want, want - 1, want + 1, want + 2,
+                     int(rng.integers(-2, K + 2))):
+            got, hit = hinted_halving(row, nk, K, target, hint)
+            assert got == want, (i, nk, target, hint)
+            hits += hit
+    return hits
+
+
+def test_hinted_halving_equals_fixed_random():
+    """Random non-decreasing rows with ties, of every valid length nk
+    (1 to K) and K not a power of 2; targets on the row's values, beyond
+    both ends, NaN and between; hints at, next to and far from the
+    answer."""
+    rng = np.random.default_rng(5)
+    K = 37
+    rows = np.sort(rng.integers(0, 12, (400, K)).astype(np.float32), axis=1)
+    nks = rng.integers(1, K + 1, 400)
+    assert _halving_cases(rows, nks, K, rng, 3000) > 0
+
+
+def test_hinted_halving_equals_fixed_flagship():
+    """The flagship's eps rows (K = 224), which ``rows_monotone`` accepts,
+    and one row made non-monotone, which it refuses."""
+    from jurassic_torch.ops.ega import rows_monotone
+    from jurassic_torch.workloads import flagship
+    ft = flagship()[1]
+    assert rows_monotone(ft)
+    G, P, T, K, D = ft.eps.shape
+    rng = np.random.default_rng(6)
+    idx = [(g, p, t, d) for g, p, t, d in zip(*(rng.integers(0, s, 50)
+                                                for s in (G, P, T, D)))]
+    rows = np.stack([ft.eps[g, p, t, :, d] for g, p, t, d in idx])
+    nks = np.array([ft.nu[g, p, t, d] for g, p, t, d in idx])
+    assert _halving_cases(rows, nks, K, rng, 400) > 0
+    eps = ft.eps.copy()
+    eps[1, 2, 3, 100, 4] = eps[1, 2, 3, 99, 4] - 1e-3
+    assert not rows_monotone(ft._replace(eps=eps))
+    nu = ft.nu.copy()
+    nu[1, 2, 3, 4] = 100                # the step now lies past nu
+    assert rows_monotone(ft._replace(eps=eps, nu=nu))

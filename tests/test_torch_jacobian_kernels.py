@@ -94,3 +94,55 @@ def test_tracer_tangents_match_jvp(case):
                                        err_msg=f"{case} {f} tangent {j}")
     if case == "ground":
         assert (los.tsurf[::2] > 0).all()
+
+
+# The RT tangent kernel's decisions on the tables (``ops.ega``): whether
+# the (p, T) axes are bitwise the same in every channel, and then the
+# bracket it takes once per (segment, gas) from channel 0.
+
+def _tables(name: str):
+    from jurassic_torch.workloads import flagship
+    if name == "flagship":
+        return flagship()[1]
+    return small_limb(ng=4, nd=9, nr=1)[1]
+
+
+@pytest.mark.parametrize("field", [None, "p", "t", "nt"])
+@pytest.mark.parametrize("tables", ["flagship", "small_limb"])
+def test_axes_uniform_decision(tables, field):
+    """True on the synthetic tables, whose channels share their axes;
+    False once one channel's axis moves by one ulp (or one count by
+    one), decided on upload."""
+    from jurassic_torch.ops.ega import axes_uniform, fast_tables_to_device
+    ft = _tables(tables)
+    if field is not None:
+        a = getattr(ft, field).copy()
+        at = (0, 1) + (2,) * (a.ndim - 3) + (a.shape[-1] - 1,)
+        a[at] = (a[at] - 1 if field == "nt"
+                 else np.nextafter(a[at], np.inf))
+        ft = ft._replace(**{field: a})
+    assert axes_uniform(ft) == (field is None)
+    assert fast_tables_to_device(ft, "cpu").uniform == (field is None)
+
+
+@pytest.mark.parametrize("tables", ["flagship", "small_limb"])
+def test_shared_bracket_equals_count_index(tables):
+    """On channel-uniform axes the record kernel's one bracket of a
+    (segment, gas), channel 0's count searches, is every channel's
+    ``ops.ega._brackets`` (``_count_index``), at points inside, on and
+    outside the axes."""
+    from jurassic_torch.ops.ega import _brackets, fast_tables_to_device
+    from jurassic_torch.ops.ega_jvp import shared_brackets
+    tbl = fast_tables_to_device(_tables(tables), "cpu")
+    assert tbl.uniform
+    G, D = tbl.np_.shape
+    rng = np.random.default_rng(3)
+    p = np.exp(rng.uniform(np.log(1e-4), np.log(2e3), 300))
+    t = rng.uniform(140.0, 350.0, 300)
+    p[:20] = tbl.p[0, 0, rng.integers(0, tbl.p.shape[2], 20)].numpy()
+    t[20:40] = tbl.t[0, 0, 0, rng.integers(0, tbl.t.shape[3], 20)].numpy()
+    p, t = torch.from_numpy(p), torch.from_numpy(t)
+    ipr, it0, it1 = shared_brackets(tbl, p, t)
+    _, _, ipr_d, _, _, _, _, it0_d, it1_d, _, _ = _brackets(tbl, p, t, G, D)
+    for a, b in ((ipr, ipr_d), (it0, it0_d), (it1, it1_d)):
+        assert torch.equal(a.unsqueeze(-1).expand_as(b), b)

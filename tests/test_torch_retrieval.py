@@ -219,8 +219,8 @@ def test_package_sizing_on_a_card(setup, monkeypatch):
     model's dtype, their float64 copy, rad and tau, and the mask; and
     the RT tangent kernel's scratch as the library lays it out
     (``ops.ega_jvp.scratch_lengths``, here a stand-in): a record per
-    segment and channel, the epilogue's values per channel and the
-    first-record index."""
+    segment and channel and its segment index, the epilogue's values per
+    channel and the first-record index."""
     from jurassic_torch.ops import ega_jvp
 
     s = setup
@@ -230,14 +230,14 @@ def test_package_sizing_on_a_card(setup, monkeypatch):
     S, G, W, D = m.ctl.nlos, m.ctl.ng, m.ctl.nw, m.ctl.nd
     asked = []
     monkeypatch.setattr(ega_jvp, "scratch_lengths",
-                        lambda g: asked.append(g) or (7 * g + 3, 4))
+                        lambda g, w: asked.append((g, w)) or (7 * g + 3, 4))
     los = S * (6 + 2 * G + W) * 8 + S
     per_ray = tret.autodiff_ray_bytes(m, n)
-    records = (S * (7 * G + 3) + 4) * D * 8 + 8
+    records = (S * (7 * G + 3) + 4) * D * 8 + S * 4 + 8
     assert per_ray == (los + (S * (3 + 2 * G + W) + 1) * n * 8 + records
                        + D * n * (2 * 8 + 8) + 2 * D * 8 + D)
     assert tret.autodiff_ray_bytes(m, 0) == los + records + 2 * D * 8 + D
-    assert asked == [G, G]
+    assert asked == [(G, W), (G, W)]
     assert tret.autodiff_package_size(m, nr, n) == 0       # the CPU
     m.device = torch.device("cuda", 0)
     card = _FakeCard(monkeypatch, 0)
