@@ -105,19 +105,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``REFRAC 0``, against ``IP = 1`` (2e-3 / 0.1 of max|rad|, the JAX
     test's bars), through the turbo kernel;
 13. retrieval Jacobians -- first the tangent kernels of the
-    forward-mode Jacobian (``csrc/trace_rays_jvp.cu``; the RT pass's
-    record and contraction kernels, ``csrc/ega_jvp_fast.cu``) against
-    their plain versions (``geometry.trace_rays_jvp_ref``; ``ops.ega_jvp.
-    rt_jvp_records_ref`` and ``rt_jvp_contract_ref`` for each RT kernel,
-    ``forward.rt_integrate_jvp_ref`` for the RT entry) on the same CUDA
+    forward-mode Jacobian (the tracer's record and tangent kernels,
+    ``csrc/trace_rays_jvp.cu``; the RT pass's record and contraction
+    kernels, ``csrc/ega_jvp_fast.cu``) against their plain versions
+    (``geometry.trace_rays_jvp_ref`` for the tracer's entry, and
+    ``trace_step_records_ref`` and ``trace_tangents_from_records_ref`` for
+    each tracer kernel: the records bit for bit but for their partials;
+    ``ops.ega_jvp.rt_jvp_records_ref`` and ``rt_jvp_contract_ref`` for
+    each RT kernel, ``forward.rt_integrate_jvp_ref`` for the RT entry) on
+    the same CUDA
     tensors in float64 and float32, on a small limb scan in each tracer
     branch (9 tangents; 40 as well on the plain scan), a ground-hitting
     scan with the brightness conversion and every 30th flagship ray with
     the main path's own 130 tangents (the block shapes and kernel
     instantiations the flagship runs), the plain scan at both n and the
     flagship case also on tables whose axes differ per channel (the
-    record kernel's per-channel instantiation): the tracer tangent
-    kernel's LOS bit for bit the tracer kernel's, each tangent field, the
+    record kernel's per-channel instantiation), after the tracer tangent
+    kernel's division by a block-wide reciprocal against the division on
+    2^28 random pairs a dtype (``ops.trace_jvp.quo_check``, bit for bit):
+    the tracer's record kernel's LOS bit for bit the tracer kernel's,
+    each tangent field, the
     record kernel's A (per LOS field), a_surf, rad and tau, the
     contraction and drad within 1e-10 (float64) / 1e-3 (float32) of
     their max, whether rad, tau and A are bit for bit printed; then the
@@ -141,10 +148,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     against the CPU's plain tangent chain on a small case (1e-10 of
     max|K|); the packages bit for bit: one package of every fourth ray
     (271) against those rays' rows of the 1084-ray run; each tangent
-    kernel's time alone at the flagship (float64 and float32; the RT
-    record and contraction kernels each), its registers, its plain
-    version's time (float64), its bound, and for the contraction one
-    ``torch.bmm`` of the same product as a yardstick;
+    kernel's time alone at the flagship (float64 and float32; the
+    tracer's record and tangent kernels each, the record kernel also on
+    the busiest ray alone; the RT record and contraction kernels each),
+    its registers, its plain version's time (float64), its bound, and for
+    the contraction one ``torch.bmm`` of the same product as a yardstick;
+    the tracer tangents against ``trace_rays_jvp_ref`` on every flagship
+    ray (float64) and every fourth (float32);
 14. multi-GPU (torch.distributed) -- ``parallel.ShardedForwardModel`` at
     the full flagship: on an NCCL group of one process (a 1 x 1 mesh) in
     ``KERNEL = auto`` and ``pallas``, bit for bit plain ``formod``, the
@@ -274,13 +284,13 @@ OPS_PER_GAS = {"turbo": 48, "table": 40}
 OPS_PER_SEGMENT = 78
 # Float operations of the tangent kernels (csrc/trace_rays_jvp.cu,
 # csrc/ega_jvp_fast.cu) per tangent, counted from the sources, a
-# transcendental, compare or select as one operation, the primal's as
-# above (the tracer's once a ray, not once a warp):
-#   tracer, per step: step length (18), p and t at z (10), refraction's
-#     midpoint and offset altitudes (29), their p, t and refractivity
-#     (70), gradient and direction (27), normalisation (14), advance and
-#     state (18), the trapezoid (3) -> 190; per gas or window and step: q
-#     or k by its slope (7); per gas and step: u (12)
+# transcendental, compare or select as one operation; the tracer's record
+# kernel runs the tracer's primal (OPS_TRACE_*) once a ray:
+#   tracer tangent kernel, per step: step length (18), p and t at z
+#     (10), refraction's midpoint and offset altitudes (29), their p, t
+#     and refractivity (70), gradient and direction (27), normalisation
+#     (14), advance and state (18), the trapezoid (3) -> 190; per gas or
+#     window and step: q or k by its slope (7); per gas and step: u (12)
 #   RT record kernel, per valid segment and channel: a corner's searches,
 #     slopes and clamps (43 + 10 with the halving; a corner whose hint
 #     holds takes about 28 fewer), a gas's bilinear weights, guards and
@@ -1030,8 +1040,8 @@ def profiled_call(torch, fn, label: str, names: bool = False, reset=None):
     from torch.profiler import ProfilerActivity, profile
 
     from jurassic_torch.ops import ega_fused
-    kinds = ("ega_fused_kernel", "trace_rays_kernel", "trace_rays_jvp_kernel",
-             "ega_rec_kernel", "ega_jvp_contract")
+    kinds = ("ega_fused_kernel", "trace_rays_kernel", "trace_jvp_record",
+             "trace_jvp_tangent", "ega_rec_kernel", "ega_jvp_contract")
     for attempt in range(1, PROFILE_TRIES + 1):
         if reset is not None:
             reset()
@@ -1047,7 +1057,7 @@ def profiled_call(torch, fn, label: str, names: bool = False, reset=None):
         hand = [k[1] for k in ks if any(name in k[0] for name in kinds)]
         by_kind = {name: sum(k[1] for k in ks if name in k[0]) / 1e6
                    for name in kinds}
-        # one device kernel a launch (the RT tangent entry records its two
+        # one device kernel a launch (the tangent entries record their
         # kernels apart)
         want = len(events)
         hand_ms = sum(a.elapsed_time(b) for _, a, b in events)
@@ -1272,15 +1282,17 @@ def fd_vs_ad(K_fd, K_ad, label: str) -> float:
     return excess
 
 
-JVP_COUNTS = ("tracer tangent", "RT tangent entry", "RT record",
-              "RT contraction", "tracer", "turbo", "table")
+JVP_COUNTS = ("tracer tangent entry", "tracer record", "tracer tangent",
+              "RT tangent entry", "RT record", "RT contraction", "tracer",
+              "turbo", "table")
 
 
 def jvp_launches(reset: bool = False) -> tuple:
     """The launch counts of ``JVP_COUNTS``, set to 0 first where
     ``reset``."""
     from jurassic_torch.ops import ega_fused, ega_jvp, trace, trace_jvp
-    mods = ((trace_jvp, "LAUNCHES"), (ega_jvp, "LAUNCHES"),
+    mods = ((trace_jvp, "LAUNCHES"), (trace_jvp, "LAUNCHES_RECORD"),
+            (trace_jvp, "LAUNCHES_TANGENT"), (ega_jvp, "LAUNCHES"),
             (ega_jvp, "LAUNCHES_RECORD"), (ega_jvp, "LAUNCHES_CONTRACT"),
             (trace, "LAUNCHES"), (ega_fused, "LAUNCHES"),
             (ega_fused, "LAUNCHES_TABLE"))
@@ -1347,7 +1359,7 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
     if not peak / AD_EST_RATIO <= est <= AD_EST_RATIO * peak:
         fail(f"{label}: the sizing estimate is not within {AD_EST_RATIO}x "
              "of the measured peak")
-    want = (0,) * 7 if jacfwd else (npk,) * 4 + (0, 0, 0)
+    want = (0,) * 9 if jacfwd else (npk,) * 6 + (0, 0, 0)
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want}")
     return K, obs.nr, npk, counts, wall
@@ -1472,6 +1484,60 @@ def record_block_shape_hold(torch, rargs, S: int, G: int, W: int) -> bool:
     return same
 
 
+def tracer_kernels_hold(torch, ctl, prof, ptan, geo, timed=None):
+    """The tracer's record kernel against ``trace_step_records_ref`` (the
+    ray records and every primal field bit for bit, the partials
+    ``TRACE_RECORD_PARTIALS`` within AD_KERNEL_TOL of their max) and its LOS
+    against the tracer kernel's (bit for bit); the tangent kernel on those
+    records against ``trace_tangents_from_records_ref`` (each field
+    within AD_KERNEL_TOL of its max).  ``timed(key, fn)`` runs each plain
+    statement (to time it).  Returns ({"records": bool, "tangents from
+    records": bool} bit for bit, {field: largest relative difference},
+    largest |record difference|, the record kernel's LOS, tangents)."""
+    from jurassic_torch.geometry import (TRACE_RECORD_PARTIALS,
+                                         los_tangent_fields,
+                                         trace_record_fields,
+                                         trace_step_records_ref,
+                                         trace_tangents_from_records_ref)
+    from jurassic_torch.ops import trace_jvp as tj
+    from jurassic_torch.ops.trace import trace_rays_cuda
+    timed = timed or (lambda key, fn: fn())
+    args = (ctl.rayds, ctl.raydz, bool(ctl.refrac), ctl.nlos)
+    los, rec, flag = tj.trace_jvp_records_cuda(prof, geo, *args)
+    los_t, _ = trace_rays_cuda(prof, geo, *args)
+    same, diffs = los_diffs(torch, los, los_t)
+    plain = timed("trace_record",
+                  lambda: trace_step_records_ref(ctl, prof, geo))
+    got, ref = trace_record_fields(rec.step), trace_record_fields(plain.step)
+    primal = (same == prof.z.shape[0] and not flag.any()
+              and all(b for _, b in diffs.values())
+              and bool(torch.equal(rec.ray, plain.ray))
+              and all(torch.equal(got[k], ref[k]) for k in ref
+                      if k not in TRACE_RECORD_PARTIALS))
+    errs = rel_field_errs(torch, {k: got[k] for k in TRACE_RECORD_PARTIALS},
+                          {k: ref[k] for k in TRACE_RECORD_PARTIALS})
+    d_abs = float((rec.step - plain.step).abs().max())
+    bits = {"records": bool(torch.equal(rec.step, plain.step))}
+    del plain
+    tan = tj.trace_jvp_tangents_cuda(prof, ptan, los, rec, ctl.refrac)
+    tan_r = timed("trace_tangent", lambda: trace_tangents_from_records_ref(
+        ctl, prof, ptan, los, rec))
+    G, W = ctl.ng, ctl.nw
+    errs.update({"from records " + k: v for k, v in rel_field_errs(
+        torch, los_tangent_fields(tan, G, W),
+        los_tangent_fields(tan_r, G, W)).items()})
+    bits["tangents from records"] = bool(torch.equal(tan.seg, tan_r.seg)
+                                         and torch.equal(tan.tsurf,
+                                                         tan_r.tsurf))
+    del tan_r
+    name = str(prof.z.dtype)[6:]
+    if not (primal and max(errs.values()) <= AD_KERNEL_TOL[name]):
+        fail(f"the tracer's record and tangent kernels vs their plain "
+             f"statements ({name}): primal bit for bit {primal}, "
+             f"{errs}")
+    return bits, errs, d_abs, los, tan
+
+
 def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
     """The tangent kernels against their plain versions on the same CUDA
     tensors, float64 and float32: a small limb scan (37 rays, NLOS 120, 4
@@ -1488,20 +1554,32 @@ def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
     1084; ``jvp_timing`` holds every flagship ray in float64).
     The scan at both n and the flagship cases run again on tables whose
     axes differ per channel (``workloads.perturbed_axes``): the record
-    kernel's per-channel instantiation.  The tracer tangent kernel's LOS
+    kernel's per-channel instantiation.  The tracer tangent entry's LOS
     bit for bit the tracer kernel's; each LOS tangent field within
-    AD_KERNEL_TOL of its max; each RT kernel against its plain version
-    (``rt_kernels_hold``) and drad likewise.  Returns ({dtype: largest
-    relative error}, {RT kernel or drad: largest absolute difference in
-    float64}, {RT hold: largest relative error})."""
+    AD_KERNEL_TOL of its max; the tracer's record and tangent kernels
+    each against their plain statements (``tracer_kernels_hold``); each
+    RT kernel against its plain version (``rt_kernels_hold``) and drad
+    likewise.  Returns ({dtype: largest relative error}, {RT kernel,
+    tracer record kernel or drad: largest absolute difference in
+    float64}, {RT hold: largest relative error}, {tracer kernels' hold:
+    largest relative error})."""
     from jurassic_torch.forward import _obs_rows
     from jurassic_torch.geometry import (los_tangent_fields,
                                          trace_rays_jvp_ref)
     from jurassic_torch.ops.trace import trace_rays_cuda
     from jurassic_torch.ops.trace_jvp import trace_rays_jvp_cuda
+    from jurassic_torch.ops.trace_jvp import quo_check
     from jurassic_torch.retrieval import autodiff_seed, package_tangents
     from jurassic_torch.workloads import (TRACE_BRANCHES, perturbed_axes,
                                           trace_branch)
+
+    quo = quo_check(1 << 28, seed=1)
+    print(f"tracer tangent kernel's division by a block-wide reciprocal vs "
+          f"the division: {quo}", flush=True)
+    if quo["float_differ"] or quo["double_differ"] or not (
+            quo["float_fast"] and quo["double_fast"]):
+        fail("the tracer tangent kernel's division differs from the "
+             "division")
 
     def small(br, n, axes=False):
         def inputs(dtype):
@@ -1544,6 +1622,7 @@ def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
     worst = {"float64": 0.0, "float32": 0.0}
     worst_rt = {}
     worst_abs = {}
+    worst_rec = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype)[6:]
         for label, inputs in cases(dtype):
@@ -1558,6 +1637,14 @@ def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
             bitwise = same == nr and all(b for _, b in diffs.values())
             errs = rel_field_errs(torch, los_tangent_fields(tan_k, G, W),
                                   los_tangent_fields(tan_r, G, W))
+            del tan_r
+            rec_bits, rec_errs, rec_abs, _, _ = tracer_kernels_hold(
+                torch, ctl, prof, ptan, geo)
+            for k, v in rec_errs.items():
+                worst_rec[k] = max(worst_rec.get(k, 0.0), v)
+            if dtype == torch.float64:
+                worst_abs["trace_jvp_record"] = max(
+                    worst_abs.get("trace_jvp_record", 0.0), rec_abs)
             e = m.eager_tables()
             if e.tbl.uniform == ("per-channel" in label):
                 fail(f"{label}: the tables' uniform flag is "
@@ -1584,7 +1671,11 @@ def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
                   + "; RT kernels: " + ", ".join(
                       f"{k} {v:.1e}" for k, v in rt_errs.items())
                   + "; bit for bit " + ", ".join(
-                      f"{k} {v}" for k, v in bits.items()), flush=True)
+                      f"{k} {v}" for k, v in (*bits.items(),
+                                              *rec_bits.items()))
+                  + "; tracer kernels vs their plain statements: "
+                  + ", ".join(f"{k} {v:.1e}" for k, v in rec_errs.items()),
+                  flush=True)
             finite = bool(torch.isfinite(dr_k).all())
             if not (bitwise and not flag.any() and finite
                     and bits.get("record blocks", True)
@@ -1592,9 +1683,10 @@ def jvp_kernels_check(torch, ForwardModel, flagship, small_limb, dev):
                     and max(rt_errs.values()) <= AD_KERNEL_TOL[name]):
                 fail(f"tangent kernels vs plain versions ({label}, {name})")
     print(f"tangent kernels vs plain versions: largest {worst} of "
-          f"max|tangent|, RT kernels' own holds {worst_rt} (bars "
-          f"{AD_KERNEL_TOL})", flush=True)
-    return worst, worst_abs, worst_rt
+          f"max|tangent|, RT kernels' own holds {worst_rt}, the tracer "
+          f"kernels' own holds {worst_rec} (bars {AD_KERNEL_TOL})",
+          flush=True)
+    return worst, worst_abs, worst_rt, worst_rec
 
 
 def kernel_ms_each(torch, fn, names: tuple, n: int) -> dict:
@@ -1621,12 +1713,17 @@ def kernel_ms_each(torch, fn, names: tuple, n: int) -> dict:
 def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
     """At the flagship, n = 130, in ``dtype``: each tangent kernel's time
     alone (CUDA events around each launch, median of 5, after a warm-up;
-    the RT entry's record and contraction kernels each), its plain
-    version's (one run, float64 only: ``trace_rays_jvp_ref``,
+    the tracer's record and tangent kernels each, the record kernel also
+    on the busiest ray alone, its chain's floor; the RT entry's record and
+    contraction kernels each), its plain version's (one run, float64
+    only: ``trace_step_records_ref``, ``trace_tangents_from_records_ref``
+    and, for the tracer's entry as a whole, ``trace_rays_jvp_ref``;
     ``rt_jvp_records_ref``, ``rt_jvp_contract_ref`` and, for the RT entry
     as a whole, ``rt_integrate_jvp_ref``, which takes tens of GB in
-    float32 and float64 alike; their outputs hold the RT kernels on every
-    flagship ray, ``rt_kernels_hold``), the contraction's yardstick (one
+    float32 and float64 alike; their outputs hold the kernels on every
+    flagship ray: the tracer tangents within AD_KERNEL_TOL of
+    ``trace_rays_jvp_ref``'s, ``tracer_kernels_hold``,
+    ``rt_kernels_hold``), the contraction's yardstick (one
     ``torch.bmm`` of the rays' dense A and LOS tangents, median of 3), the
     registers, and each kernel's bound: each input read once and each
     output written once over the HBM rate, the operations
@@ -1637,8 +1734,10 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
     plain_ms, bound_ms, bound_by, ...}}, the float64 run's RT holds
     (``rt_kernels_hold``'s relative errors and absolute differences) or
     None)."""
-    from jurassic_torch.geometry import trace_rays_jvp_ref
+    from jurassic_torch.geometry import (los_tangent_fields,
+                                         trace_rays_jvp_ref)
     from jurassic_torch.ops import ega_jvp as ej
+    from jurassic_torch.ops import trace_jvp as tj
     from jurassic_torch.ops.trace_jvp import trace_rays_jvp_cuda
     from jurassic_torch.retrieval import autodiff_seed, package_tangents
     ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
@@ -1656,8 +1755,12 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
     G, W, D, S = ctl.ng, ctl.nw, ctl.nd, ctl.nlos
     F = 3 + 2 * G + W
     n = ptan.d.shape[2]
-    ms_t = kernel_ms(torch, lambda: trace_rays_jvp_cuda(*targs),
-                     "jt_trace_rays_jvp", 5)
+    ms_t = kernel_ms_each(torch, lambda: trace_rays_jvp_cuda(*targs),
+                          ("jt_trace_jvp_records", "jt_trace_jvp_tangents"),
+                          5)
+    busy = ray_subset(torch, prof, geo, [int(torch.argmax(los.np_))])
+    floor = kernel_ms(torch, lambda: tj.trace_jvp_records_cuda(
+        *busy, *targs[3:]), "jt_trace_jvp_records", 5)
     ms_r = kernel_ms_each(torch, lambda: ej.rt_jvp_fast_cuda(*rargs),
                           ("jt_ega_jvp_record", "jt_ega_jvp_contract"), 5)
     # the record kernel's two decisions on these tables undone: the
@@ -1681,8 +1784,28 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
         return out
     hold = None
     if dtype == torch.float64:
-        timed("trace", lambda: trace_rays_jvp_ref(ctl, prof, ptan, geo))
+        # the tracer tangents on every flagship ray, and each tracer
+        # kernel against its plain statement
+        _, tan_j = timed("trace", lambda: trace_rays_jvp_ref(ctl, prof, ptan,
+                                                             geo))
+        t_errs = rel_field_errs(torch, los_tangent_fields(tan, G, W),
+                                los_tangent_fields(tan_j, G, W))
+        del tan_j
         torch.cuda.empty_cache()
+        print(f"tracer tangents vs trace_rays_jvp_ref at the flagship ({R} "
+              f"rays, float64, n = {n}), of max|tangent|: " + ", ".join(
+                  f"{k} {v:.1e}" for k, v in t_errs.items()), flush=True)
+        if not max(t_errs.values()) <= AD_KERNEL_TOL["float64"]:
+            fail("the tracer tangents vs trace_rays_jvp_ref at the "
+                 "flagship (float64)")
+        t_bits, r_errs, _, _, _ = tracer_kernels_hold(torch, ctl, prof, ptan,
+                                                      geo, timed)
+        torch.cuda.empty_cache()
+        print(f"tracer kernels vs their plain statements at the flagship "
+              f"(float64): " + ", ".join(f"{k} {v:.1e}" for k, v in
+                                        r_errs.items())
+              + "; bit for bit " + ", ".join(f"{k} {v}" for k, v in
+                                            t_bits.items()), flush=True)
         # the plain runs hold the kernels on every flagship ray, at the
         # record kernel's block shape of the main path (two rays a block)
         errs, bits, d_abs, _ = rt_kernels_hold(torch, rargs, S, G, W, timed)
@@ -1690,7 +1813,7 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
         bits["record blocks"] = record_block_shape_hold(torch, pargs, S, G,
                                                         W)
         torch.cuda.empty_cache()
-        hold = (errs, d_abs)
+        hold = (errs, d_abs, t_errs, r_errs)
         print(f"RT kernels vs plain versions at the flagship ({R} rays, "
               f"float64, n = {n}): " + ", ".join(
                   f"{k} {v:.1e}" for k, v in errs.items())
@@ -1720,16 +1843,23 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
         t_b, t_o = n_bytes / PEAK_HBM_BYTES, ops / peak_ops
         return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else
                 "operations", n_bytes, ops)
-    # tracer: profiles, geometry, profile tangents and window indices in;
-    # the LOS, its tangents and the flag out
-    t_bytes = (sum(x.numel() * x.element_size() for x in (*prof[:8], *los,
-                                                          *tan))
-               + 6 * R * b + ptan.d.numel() * b + R * L * 4 + 4 * R)
-    t_ops = (R * S * (OPS_TRACE_STEP + OPS_TRACE_LEVEL * L
-                      + OPS_TRACE_GAS * G + OPS_TRACE_WINDOW * W)
-             + R * OPS_TRACE_RAY
-             + R * S * n * (OPS_TRACE_JVP_STEP + OPS_TRACE_JVP_FIELD
-                            * (G + W) + OPS_TRACE_JVP_GAS * G))
+    # tracer record kernel: profiles and geometry in; the LOS, the flag
+    # and the records out; the tracer's primal operations
+    step_len, ray_len = tj.record_lengths()
+    rec_bytes = (R * S * step_len + R * ray_len) * b
+    t1_bytes = (sum(x.numel() * x.element_size() for x in (*prof[:8], *los))
+                + 6 * R * b + 4 * R + rec_bytes)
+    t1_ops = (R * S * (OPS_TRACE_STEP + OPS_TRACE_LEVEL * L
+                       + OPS_TRACE_GAS * G + OPS_TRACE_WINDOW * W)
+              + R * OPS_TRACE_RAY)
+    # tracer tangent kernel: profile tangents, window indices, profiles z,
+    # q, k, the records and the LOS p, t, ds, q in; the tangents out
+    t2_bytes = (ptan.d.numel() * b + R * L * 4 + R * (1 + G + W) * L * b
+                + rec_bytes + R * S * (3 + G) * b
+                + sum(x.numel() * x.element_size() for x in tan))
+    t2_ops = R * S * n * (OPS_TRACE_JVP_STEP + OPS_TRACE_JVP_FIELD * (G + W)
+                          + OPS_TRACE_JVP_GAS * G)
+    regs_t = tj.registers(dtype, ctl.refrac)
     # record kernel: the LOS fields it reads and the tables in; rad, tau,
     # A of the valid segments, their segment indices and a_surf out
     r_bytes = (sum(x.numel() * x.element_size() for x in (
@@ -1749,8 +1879,12 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
     reg_rec, reg_con = ej.registers(G, W, S, e.tbl.uniform, dtype)
     out = {}
     for key, name, ms, lib_ms, (b_ms, b_by, nb, ops), reg in (
-            ("trace", "trace_rays_jvp", ms_t, None, bound(t_bytes, t_ops),
-             None),
+            ("trace_record", "trace_jvp_record",
+             ms_t["jt_trace_jvp_records"], None, bound(t1_bytes, t1_ops),
+             regs_t["record"]),
+            ("trace_tangent", "trace_jvp_tangent",
+             ms_t["jt_trace_jvp_tangents"], None, bound(t2_bytes, t2_ops),
+             regs_t["tangent"]),
             ("record", "ega_jvp_record", ms_r["jt_ega_jvp_record"], None,
              bound(r_bytes, r_ops), reg_rec),
             ("contract", "ega_jvp_contract", ms_r["jt_ega_jvp_contract"],
@@ -1777,6 +1911,15 @@ def jvp_timing(torch, ForwardModel, flagship, dev, dtype):
           flush=True)
     out["ega_jvp_record"].update(entry_ms=both, entry_plain_ms=plain.get(
         "rt"), **ablated)
+    out["trace_jvp_record"].update(floor_ms=floor)
+    out["trace_jvp_tangent"].update(
+        entry_ms=sum(ms_t.values()), entry_plain_ms=plain.get("trace"))
+    print(f"tracer tangent entry at the flagship, {str(dtype)[6:]}: both "
+          f"kernels {sum(ms_t.values()):.3f} ms, the record kernel on the "
+          f"busiest ray alone {floor:.3f} ms; plain version "
+          f"(trace_rays_jvp_ref) "
+          + (f"{plain['trace']:.1f} ms" if "trace" in plain else
+             "not timed"), flush=True)
     return out, hold
 
 
@@ -1850,7 +1993,7 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     from jurassic_torch.ops import trace as ktrace
     from jurassic_torch.retrieval import IDXT, atm2x, kernel, kernel_autodiff
 
-    worst, worst_abs, worst_rt = jvp_kernels_check(
+    worst, worst_abs, worst_rt, worst_rec = jvp_kernels_check(
         torch, ForwardModel, flagship, small_limb, dev)
     K64, nr, npk, counts64, wall64 = autodiff_run(
         torch, ForwardModel, flagship, dev, torch.float64,
@@ -1969,33 +2112,43 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     torch.cuda.empty_cache()
 
     # each tangent kernel at the flagship, float64 and float32
-    rec, (errs64, abs64) = jvp_timing(torch, ForwardModel, flagship, dev,
-                                      torch.float64)
+    rec, (errs64, abs64, t_errs64, r_errs64) = jvp_timing(
+        torch, ForwardModel, flagship, dev, torch.float64)
     rec32, _ = jvp_timing(torch, ForwardModel, flagship, dev, torch.float32)
     for k, v in errs64.items():
         worst_rt[k] = max(worst_rt.get(k, 0.0), v)
     for k, v in abs64.items():
         worst_abs[k] = max(worst_abs.get(k, 0.0), v)
-    errs_of = {"trace_rays_jvp": worst, "ega_jvp_record": {
+    for k, v in r_errs64.items():
+        worst_rec[k] = max(worst_rec.get(k, 0.0), v)
+    worst["float64"] = max(worst["float64"], *t_errs64.values())
+    from jurassic_torch.geometry import TRACE_RECORD_PARTIALS as partials
+    errs_of = {"trace_jvp_record": {
+        k: v for k, v in worst_rec.items() if k in partials},
+        "trace_jvp_tangent": {**worst, **{
+            k: v for k, v in worst_rec.items() if k not in partials}},
+        "ega_jvp_record": {
         k: v for k, v in worst_rt.items() if k in ("A", "a_surf",
                                                    "record rad",
                                                    "record tau")},
         "ega_jvp_contract": {k: v for k, v in worst_rt.items()
                              if k in ("contraction", "drad")}}
-    for i, name in ((0, "trace_rays_jvp"), (2, "ega_jvp_record"),
-                    (3, "ega_jvp_contract")):
+    for i, name in ((1, "trace_jvp_record"), (2, "trace_jvp_tangent"),
+                    (4, "ega_jvp_record"), (5, "ega_jvp_contract")):
         rec[name].update(
             launches=counts64[i],
             launches_on=f"flagship kernel_autodiff, n = 130, float64, "
                         f"{npk} package(s)",
             launches_f32=counts32[i],
             max_abs_err=worst_abs.get(name, worst_abs["drad"]),
-            max_abs_err_of=("largest |A| difference from "
-                            "rt_jvp_records_ref" if i == 2 else
+            max_abs_err_of=("largest |record difference| from "
+                            "trace_step_records_ref" if i == 1 else
+                            "largest |A| difference from "
+                            "rt_jvp_records_ref" if i == 4 else
                             "largest |drad| difference from "
-                            "rt_jvp_contract_ref on the same A" if i == 3
+                            "rt_jvp_contract_ref on the same A" if i == 5
                             else "largest |drad| difference, the RT tangent "
-                            "kernels on the tracer tangent kernel's LOS "
+                            "kernels on the tracer tangent kernels' LOS "
                             "against the plain versions")
             + ", float64, the small cases and every 30th flagship ray "
               "at n = 130 (uniform and per-channel axes), and every "
@@ -2010,6 +2163,11 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
     rec["ega_jvp_record"].update(**{
         k + "_f32": rec32["ega_jvp_record"][k] for k in (
             "entry_ms", "ms_without_hints", "ms_per_channel_brackets")})
+    rec["trace_jvp_record"].update(
+        floor_ms_of="the record kernel alone on the busiest flagship ray",
+        floor_ms_f32=rec32["trace_jvp_record"]["floor_ms"])
+    rec["trace_jvp_tangent"].update(
+        entry_ms_f32=rec32["trace_jvp_tangent"]["entry_ms"])
     return (fd_launches["auto"][0], fd_launches["pallas"][1],
             fd_launches["auto"][2]), rec
 
@@ -2599,9 +2757,9 @@ def main() -> None:
          "jacobian_launches_on": "FD retrieval.kernel, flagship, KERNEL = "
                                  "auto, n = 5 (6 formods)"},
         *({"name": name, "route": "cuda",
-           "source": "jurassic_torch/csrc/" + ("trace_rays_jvp.cu" if
-                                               name == "trace_rays_jvp" else
-                                               "ega_jvp_fast.cu"),
+           "source": "jurassic_torch/csrc/" + (
+               "trace_rays_jvp.cu" if name.startswith("trace_jvp_")
+               else "ega_jvp_fast.cu"),
            "replaces": "jurassic_tpu/retrieval.py:281", **r}
           for name, r in jvp_rec.items()),
         *probe_records], "profile_attempts": PROFILE_ATTEMPTS}), flush=True)

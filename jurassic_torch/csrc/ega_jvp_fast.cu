@@ -79,7 +79,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using namespace jt_cp;
 
 constexpr int REC_THREADS = 256;  // most (ray, channel) lanes of a block
 constexpr int REC_BLOCKS = 3;     // record blocks an SM holds (80 registers)
@@ -675,27 +679,6 @@ __global__ void __launch_bounds__(REC_THREADS, REC_BLOCKS) ega_rec_kernel(
       o[(size_t)(2 + 2 * G + W) * D] = a_dbds * bp[1];
     }
   }
-}
-
-// cp.async of 16, 8 or 4 bytes, its groups
-__device__ __forceinline__ void cp16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-__device__ __forceinline__ void cp8(unsigned dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
-               "l"(src));
-}
-__device__ __forceinline__ void cp4(unsigned dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // One warp copies len values from global src to shared dst: 16-byte

@@ -162,14 +162,6 @@ int launch(const void* z, const void* p, const void* t, const void* q,
 // signed zero): counts[6] += {sqrt in range, sqrt differing from sqrtf,
 // rcp in range, rcp differing from 1.0f / x, div in range, div differing
 // from a / b}, a difference meaning any bit.
-__device__ __forceinline__ unsigned long long splitmix64(
-    unsigned long long z) {
-  z += 0x9e3779b97f4a7c15ull;
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
-  return z ^ (z >> 31);
-}
-
 __global__ void fast_ops_check_kernel(unsigned long long* counts,
                                       long long n_div,
                                       unsigned long long seed) {
@@ -270,4 +262,20 @@ extern "C" int jt_trace_fast_ops_check(void* counts, long long n_div,
   fast_ops_check_kernel<<<132 * 8, 256, 0, (cudaStream_t)stream>>>(
       (unsigned long long*)counts, n_div, (unsigned long long)seed);
   return (int)cudaGetLastError();
+}
+
+// Registers and local memory (stack frame, spills included) of the
+// instantiation a launch in that dtype and REFRAC takes: out int [2].
+extern "C" int jt_trace_registers(int is_double, int refrac, void* out) {
+  const void* f =
+      is_double ? (refrac ? (const void*)trace_rays_kernel<double, true>
+                          : (const void*)trace_rays_kernel<double, false>)
+                : (refrac ? (const void*)trace_rays_kernel<float, true>
+                          : (const void*)trace_rays_kernel<float, false>);
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  ((int*)out)[0] = a.numRegs;
+  ((int*)out)[1] = (int)a.localSizeBytes;
+  return 0;
 }

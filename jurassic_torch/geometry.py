@@ -618,10 +618,10 @@ def trace_rays_jvp(ctl: Ctl, prof: RayProfiles, ptan: ProfileTangents,
     the tangents of the fields the RT pass reads, in the dtype and on the
     device of ``prof``.  CPU tensors run the plain version
     :func:`trace_rays_jvp_ref` (which raises where a bisection does not
-    converge; ``flag`` zeros); CUDA tensors launch the tracer JVP kernel
-    (``csrc/trace_rays_jvp.cu``, ``ops/trace_jvp.py``) or raise, and
-    ``flag`` [R] int32 marks a bisection that did not converge, for the
-    caller's pull (:func:`check_entry_flag`)."""
+    converge; ``flag`` zeros); CUDA tensors launch the tracer's record
+    and tangent kernels (``csrc/trace_rays_jvp.cu``, ``ops/trace_jvp.py``)
+    or raise, and ``flag`` [R] int32 marks a bisection that did not
+    converge, for the caller's pull (:func:`check_entry_flag`)."""
     dev = prof.z.device
     if dev.type == "cpu":
         los, tan = trace_rays_jvp_ref(ctl, prof, ptan, obs_geo)
@@ -639,8 +639,10 @@ def trace_rays_jvp_ref(ctl: Ctl, prof: RayProfiles, ptan: ProfileTangents,
     """(LosData, LosTangents): the rays of :func:`trace_rays_ref`, bit for
     bit, and the forward-mode tangents of the fields the RT pass reads in
     the n directions of ``ptan``, in plain PyTorch batched over rays x
-    tangents -- the plain version of ``csrc/trace_rays_jvp.cu``, with
-    explicit tangent rules in its order.
+    tangents -- the plain version of ``csrc/trace_rays_jvp.cu``'s two
+    kernels (each stated on its own by :func:`trace_step_records_ref` and
+    :func:`trace_tangents_from_records_ref`), with explicit tangent
+    rules.
 
     z carries no tangent (it is never a state element), so neither do
     zmin, zmax and the entry point.  With REFRAC 1 the refractivity
@@ -865,6 +867,349 @@ def trace_rays_jvp_ref(ctl: Ctl, prof: RayProfiles, ptan: ProfileTangents,
                     dim=2)
     return los, LosTangents(seg=seg,
                             tsurf=torch.where(col(ok), dtsurf, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# The Jacobian's two tracer kernels, stated plainly: the record kernel's
+# step records, and the tangent kernel's rules applied to them
+
+# A step's record (``jrec`` in csrc/trace_common.cuh): (name, values) in
+# its order, values of the profiles' dtype, integers and flags exact.
+# "own" holds, per altitude m < 5 (z, then refraction's midpoint and its
+# three offset points; with REFRAC 0 z five times), TRACE_OWN_FIELDS.
+TRACE_RECORD_FIELDS = (
+    ("x0", 3), ("ex0", 3), ("radius", 1), ("norm_x", 1), ("exx", 1),
+    ("dds_dc", 1), ("den", 1), ("frac", 1), ("ds_pre", 1), ("rxe", 1),
+    ("xh", 3), ("xe", 3), ("rv", 4), ("xh2", 3), ("ng", 3), ("ex1", 3),
+    ("nfac", 1), ("z", 1), ("ds", 1), ("en", 1), ("iq", 5), ("flags", 1),
+    ("own", 40), ("pad", 1))
+TRACE_OWN_FIELDS = ("t", "r", "pa", "pb", "pz", "ta", "tb", "tz")
+TRACE_RECORD_FLAGS = ("ds_var", "escaped", "below", "same", "stopping",
+                      "advance", "corr", "use")     # bit i of "flags"
+# the fields that are partials, computed in another order than the plain
+# version's tangent rules; every other field is the primal chain's
+TRACE_RECORD_PARTIALS = ("dds_dc", "own")
+# a ray's record: the step of its ds correction (-1: none), the
+# correction, whether the ray is traced (1 / 0)
+TRACE_RAY_FIELDS = ("corr_idx", "corr_val", "ok", "pad")
+
+
+class TraceRecords(NamedTuple):
+    """What the Jacobian's record kernel writes for its tangent kernel."""
+
+    step: torch.Tensor   # [R, NLOS, 84]: TRACE_RECORD_FIELDS
+    ray: torch.Tensor    # [R, 4]: TRACE_RAY_FIELDS
+
+
+def trace_record_fields(step: torch.Tensor) -> dict:
+    """Views of step records [..., 84] by TRACE_RECORD_FIELDS name, the
+    last axis kept ("own" as [..., 5, 8])."""
+    out, at = {}, 0
+    for name, width in TRACE_RECORD_FIELDS:
+        out[name] = step[..., at:at + width]
+        at += width
+    out["own"] = out["own"].unflatten(-1, (5, len(TRACE_OWN_FIELDS)))
+    return out
+
+
+def trace_step_records_ref(ctl: Ctl, prof: RayProfiles,
+                           obs_geo: dict) -> TraceRecords:
+    """The step and ray records of the Jacobian's record kernel
+    (``csrc/trace_rays_jvp.cu``) in plain PyTorch, batched over rays, in
+    the dtype and on the device of ``prof``: the plain primal of
+    :func:`trace_rays_ref`, and at each step its input position and
+    direction and the values the tangent rules read, computed as the
+    kernel's step computes them (the partials of p and t in the order of
+    its ``RecLin::own_partials``), 0 where the step does not reach them.
+    Every step runs, stopped or not; a stopped ray at its fixed point
+    repeats its record bit for bit, which the kernel relies on."""
+    dev, dt = prof.z.device, prof.z.dtype
+    R = prof.z.shape[0]
+    nlos = int(ctl.nlos)
+    rayds, raydz = float(ctl.rayds), float(ctl.raydz)
+    refrac = bool(ctl.refrac)
+    og = {k: torch.as_tensor(v).to(dev, dt) for k, v in obs_geo.items()}
+    zmin, zmax = prof.zmin, prof.zmax
+    xobs = geo2cart(og["obsz"], og["obslon"], og["obslat"])
+    xvp = geo2cart(og["vpz"], og["vplon"], og["vplat"])
+    ex0 = xvp - xobs
+    norm = torch.sqrt(_dot3(ex0, ex0))
+    ex0 = ex0 / norm.unsqueeze(1)
+    ok = (og["obsz"] >= zmin) & (og["vpz"] <= zmax - 0.001)
+    x = torch.where((og["obsz"] > zmax).unsqueeze(1),
+                    _entry_point(xobs, ex0, norm, zmax), xobs)
+    ex = ex0
+    stopped = ~ok
+    zero = torch.zeros(R, 1, dtype=dt, device=dev)
+    pz, plon, plat = zero[:, 0], zero[:, 0], zero[:, 0]
+    corr_idx = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    corr_val = zero[:, 0]
+    col = lambda a: a.unsqueeze(1)
+    keep = lambda m, v: torch.where(col(m), v if v.dim() == 2 else col(v),
+                                    0.0)
+    steps = []
+    for ip in range(nlos):
+        f = dict.fromkeys(("norm_x", "exx", "dds_dc", "nfac", "pad"), zero)
+        f.update(x0=x, ex0=ex, xh2=zero.expand(R, 3), ng=zero.expand(R, 3),
+                 rv=zero.expand(R, 4))
+        # step length (jr_common.h:625-635)
+        radius = torch.sqrt(_dot3(x, x))
+        ds = torch.full((R,), rayds, dtype=dt, device=dev)
+        ds_var = torch.zeros(R, dtype=torch.bool, device=dev)
+        if raydz > 0.0:
+            norm_x = 1.0 / radius
+            exx = _dot3(ex, x)
+            cc = exx * norm_x
+            cosa = torch.abs(cc)
+            nz = cosa != 0.0
+            rc = 1.0 / cosa
+            ds = torch.where(nz, torch.clamp(rc * raydz, max=rayds), ds)
+            ds_var = nz & (rc * raydz <= rayds)
+            sign = torch.where(cc > 0.0, 1.0, -1.0).to(dt)
+            f.update(norm_x=keep(nz, norm_x), exx=keep(nz, exx),
+                     dds_dc=keep(nz, -raydz * rc * rc * sign))
+        z = radius - RE
+
+        # escape clipping (jr_common.h:637-648)
+        below = z < zmin
+        escaped = below | (z > zmax)
+        xh = geo2cart(pz, plon, plat)
+        zfrac = torch.where(below, zmin, zmax)
+        same = z == pz
+        den = torch.where(same, 1.0, z - pz)
+        frac = (zfrac - pz) / den
+        xe = xh + col(frac) * (x - xh)
+        rxe = torch.sqrt(_dot3(xe, xe))
+        ds_corr = torch.where(escaped, ds * frac, float("nan"))
+        f.update(den=keep(escaped, den), frac=keep(escaped, frac),
+                 ds_pre=keep(escaped, ds), rxe=keep(escaped, rxe),
+                 xh=keep(escaped, xh), xe=keep(escaped, xe), radius=col(radius))
+        x = torch.where(col(escaped), xe, x)
+        z = torch.where(escaped, rxe - RE, z)
+        ds = torch.where(escaped, 0.0, ds)
+
+        # p and t at z and, with refraction, at the step's midpoint and
+        # its three offset points: interval indices and partials
+        hds = 0.5 * ds
+        zq = col(z)
+        if refrac:
+            h = 0.02
+            xh2 = x + col(hds) * ex
+            vs = [xh2] + [torch.stack([xh2[:, j] + h if j == m else xh2[:, j]
+                                       for j in range(3)], dim=1)
+                          for m in range(3)]
+            rv = torch.stack([torch.sqrt(_dot3(v, v)) for v in vs], dim=1)
+            zq = torch.cat([zq, rv - RE], dim=1)
+            f.update(xh2=xh2, rv=rv)
+        i = _interval_index(prof, zq)
+        za, zb = _take_lo(prof, prof.z, i), _take(prof.z, i + 1)
+        pa, pb = _take_lo(prof, prof.p, i), _take(prof.p, i + 1)
+        ta, tb = _take_lo(prof, prof.t, i), _take(prof.t, i + 1)
+        p = _eip(za, pa, zb, pb, zq)
+        t = _lin(za, ta, zb, tb, zq)
+        inv = 1.0 / (zb - za)
+        w = (zq - za) * inv
+        eok = (pa > 0) & (pb > 0)
+        own = {"t": t, "r": torch.zeros_like(t),
+               "pa": torch.where(eok, p * (1.0 - w) / pa, 1.0 - w),
+               "pb": torch.where(eok, p * w / pb, w),
+               "pz": torch.where(eok, p * (torch.log(pb / pa) * inv),
+                                 (pb - pa) * inv),
+               "ta": 1.0 - w, "tb": w, "tz": (tb - ta) * inv}
+        iq = torch.cat([i.to(dt), zero.expand(R, 4)], dim=1) \
+            if not refrac else i.to(dt)
+        use = torch.zeros(R, dtype=torch.bool, device=dev)
+        ex1 = ex
+        if refrac:
+            # direction update (jr_common.h:664-690)
+            own["r"] = refractivity(p, t)
+            use = z <= Z_REFRAC
+            nfac = torch.where(use, 1.0 + own["r"][:, 0], 1.0)
+            ng = torch.where(col(use), (own["r"][:, 2:] - own["r"][:, 1:2])
+                             / h, 0.0)
+            ex1 = ex * col(nfac) + col(ds) * ng
+            f.update(nfac=col(nfac), ng=ng)
+        else:   # every lane interpolates z
+            own = {k: v.expand(R, 5) for k, v in own.items()}
+        en = torch.sqrt(_dot3(ex1, ex1))
+        ex1 = ex1 / col(en)
+
+        active = ok & ~stopped
+        stopping = active & escaped
+        advance = active & ~escaped
+        corr = stopping & (corr_idx < 0) & ~torch.isnan(ds_corr)
+        bits = (ds_var, escaped, below, escaped & same, stopping, advance,
+                corr, use)
+        flags = sum(b.to(torch.int64) << k for k, b in enumerate(bits))
+        f.update(ex1=ex1, z=col(z), ds=col(ds), en=col(en), iq=iq,
+                 flags=col(flags.to(dt)),
+                 own=torch.stack([own[k] for k in TRACE_OWN_FIELDS],
+                                 dim=2).flatten(1))
+        steps.append(torch.cat([f[k] for k, _ in TRACE_RECORD_FIELDS],
+                               dim=1))
+        corr_idx = torch.where(corr, ip, corr_idx)
+        corr_val = torch.where(corr, ds_corr, corr_val)
+
+        _, plon, plat = cart2geo(x)
+        pz = z
+        x = torch.where(col(advance), x + col(hds) * (ex + ex1), x)
+        ex = torch.where(col(advance), ex1, ex)
+        stopped = stopped | stopping | ~ok
+    ray = torch.stack([corr_idx.to(dt), corr_val, ok.to(dt), zero[:, 0]],
+                      dim=1)
+    return TraceRecords(step=torch.stack(steps, dim=1), ray=ray)
+
+
+def trace_tangents_from_records_ref(ctl: Ctl, prof: RayProfiles,
+                                    ptan: ProfileTangents, los: LosData,
+                                    rec: TraceRecords) -> LosTangents:
+    """The Jacobian's tangent kernel (``csrc/trace_rays_jvp.cu``) in plain
+    PyTorch, batched over rays x tangents: its rules applied to the
+    records ``rec`` (:func:`trace_step_records_ref`'s, or the record
+    kernel's) in step order, in its order of operations, with the LOS
+    ``los`` (p, t, ds, q) for the column densities; the trapezoid rule in
+    the step loop, and the step before a ray's ds correction finished by
+    the step that records the correction.  With the records of
+    :func:`trace_step_records_ref` it gives :func:`trace_rays_jvp_ref`'s
+    tangents."""
+    dev, dt = prof.z.device, prof.z.dtype
+    R, S = rec.step.shape[:2]
+    G = prof.q.shape[1]
+    W = prof.k.shape[1]
+    F, fds, fu = 3 + 2 * G + W, 2 + 2 * G + W, 2 + G + W
+    dP = ptan.d.to(dev, dt)[ptan.gi.to(dev)]            # [R, L, F', n]
+    nt = dP.shape[-1]
+    fields = trace_record_fields(rec.step)
+    flags = fields["flags"][..., 0].to(torch.int64)     # [R, S]
+    corr_idx = rec.ray[:, 0].to(torch.int64)
+    col = lambda a: a.unsqueeze(-1)                     # [R] -> [R, 1]
+    v3 = lambda a: a.view(R, 1, 1)
+    seg = torch.zeros((R, S, F, nt), dtype=dt, device=dev)
+    dx = torch.zeros((R, 3, nt), dtype=dt, device=dev)
+    dex, dpx = dx, dx
+    dpz = torch.zeros((R, nt), dtype=dt, device=dev)
+    dtsurf = dcorr = dds_prev = dds_pc = dp_c = dt_c = dpz
+    rows = torch.cat([prof.q, prof.k], dim=1)           # [R, G + W, L]
+
+    def column(dq, qv, p, t, dp, dtt, ds, trap):
+        """u's tangent [R, G, n] of a step from its q tangents dq."""
+        b = KB * t
+        cq = 10.0 * qv * col(p) / col(b)                # [R, G]
+        return (10.0 * (dq * v3(p) + col(qv) * dp.unsqueeze(1))
+                - col(cq) * (KB * dtt).unsqueeze(1)) / v3(b) * v3(ds) \
+            + col(cq) * trap.unsqueeze(1)
+
+    for ip in range(S):
+        rc = {k: v[:, ip] for k, v in fields.items()}
+        one = lambda k: rc[k][:, 0]
+        fl = flags[:, ip]
+        bit = lambda name: (fl >> TRACE_RECORD_FLAGS.index(name)) & 1 == 1
+        own = rc["own"]                                 # [R, 5, 8]
+        o = lambda m, k: col(own[:, m, TRACE_OWN_FIELDS.index(k)])
+        x0, ex0 = rc["x0"], rc["ex0"]
+        # step length
+        dr = _dot3t(x0, dx) / col(one("radius"))
+        norm_x = col(one("norm_x"))
+        dnorm = -(norm_x * norm_x) * dr
+        dc = (_dot3t(x0, dex) + _dot3t(ex0, dx)) * norm_x \
+            + col(one("exx")) * dnorm
+        dds = torch.where(col(bit("ds_var")), col(one("dds_dc")) * dc, 0.0)
+        # the escape clip
+        esc, frac = bit("escaped"), one("frac")
+        dden = torch.where(col(bit("same")), 0.0, dr - dpz)
+        dfrac = (-dpz - col(frac) * dden) / col(one("den"))
+        dx_e = dpx + dfrac.unsqueeze(1) * (x0 - rc["xh"]).unsqueeze(2) \
+            + v3(frac) * (dx - dpx)
+        dds_corr = dds * col(frac) + col(one("ds_pre")) * dfrac
+        dz = torch.where(col(esc), _dot3t(rc["xe"], dx_e) / col(one("rxe")),
+                         dr)
+        dx = torch.where(v3(esc), dx_e, dx)
+        dds = torch.where(col(esc), 0.0, dds)
+
+        # p and t at z, then q and k; the trapezoid rule and u
+        iq = rc["iq"].to(torch.int64)
+
+        def at(m, fs):
+            """The profile tangents of fields fs at altitude m's lower and
+            upper level: [R, len(fs), n] each."""
+            i = iq[:, m:m + 1]
+            return (_take_tan(dP, i, prof.short)[:, 0, fs],
+                    _take_tan(dP, i + 1, False)[:, 0, fs])
+        lo, hi = at(0, slice(None))
+        dp = o(0, "pa") * lo[:, 0] + o(0, "pb") * hi[:, 0] + o(0, "pz") * dz
+        dtt = o(0, "ta") * lo[:, 1] + o(0, "tb") * hi[:, 1] + o(0, "tz") * dz
+        i0 = iq[:, :1]
+        za = _take_lo(prof, prof.z, i0)
+        inv = 1.0 / (_take(prof.z, i0 + 1) - za)        # [R, 1]
+        w = ((rc["z"] - za) * inv).unsqueeze(1)         # [R, 1, 1]
+        slope = (_take(rows, i0 + 1) - _take_lo(prof, rows, i0)) \
+            * inv.unsqueeze(1)                          # [R, G + W, 1]
+        dv = (1.0 - w) * lo[:, 2:] + w * hi[:, 2:] + slope * dz.unsqueeze(1)
+        fix = (corr_idx == ip) & (corr_idx >= 1)
+        defer = corr_idx - 1 == ip
+        trap = 0.5 * (torch.where(col(fix), dds_corr, dds_prev) + dds)
+        seg[:, ip, 0], seg[:, ip, 1], seg[:, ip, 2:fu] = dp, dtt, dv
+        seg[:, ip, fu:fds] = column(dv[:, :G], los.q[:, ip], los.p[:, ip],
+                                    los.t[:, ip], dp, dtt, los.ds[:, ip],
+                                    trap)
+        seg[:, ip, fds] = trap
+        dtsurf = torch.where(col(bit("stopping") & bit("below")), dtt,
+                             dtsurf)
+        dcorr = torch.where(col(bit("corr")), dds_corr, dcorr)
+        if ip >= 1 and bool(fix.any()):
+            # the step before, its raw ds the correction (jr_common.h:646)
+            tr = 0.5 * (dds_pc + dcorr)
+            u1 = column(seg[:, ip - 1, 2:2 + G], los.q[:, ip - 1],
+                        los.p[:, ip - 1], los.t[:, ip - 1], dp_c, dt_c,
+                        los.ds[:, ip - 1], tr)
+            seg[:, ip - 1, fu:fds] = torch.where(v3(fix), u1,
+                                                 seg[:, ip - 1, fu:fds])
+            seg[:, ip - 1, fds] = torch.where(col(fix), tr,
+                                              seg[:, ip - 1, fds])
+        dds_pc = torch.where(col(defer), dds_prev, dds_pc)
+        dp_c = torch.where(col(defer), dp, dp_c)
+        dt_c = torch.where(col(defer), dtt, dt_c)
+        dds_prev = dds
+
+        # the direction: refraction at z and at the midpoint and its
+        # three offset points, normalised
+        ds, dhds = one("ds"), 0.5 * dds
+        hds = 0.5 * ds
+        dex1 = dex
+        if ctl.refrac:
+            h = 0.02
+            dxh2 = dx + dhds.unsqueeze(1) * ex0.unsqueeze(2) + v3(hds) * dex
+            xd = _dot3t(rc["xh2"], dxh2)
+            dn = []
+            for m in range(5):
+                dzm = dz
+                if m > 0:
+                    off = dxh2[:, m - 2] if m > 1 else torch.zeros_like(xd)
+                    dzm = (xd + h * off) / col(rc["rv"][:, m - 1])
+                lo, hi = at(m, slice(0, 2))
+                dpm = o(m, "pa") * lo[:, 0] + o(m, "pb") * hi[:, 0] \
+                    + o(m, "pz") * dzm
+                dtm = o(m, "ta") * lo[:, 1] + o(m, "tb") * hi[:, 1] \
+                    + o(m, "tz") * dzm
+                dn.append((7.753e-05 * dpm - o(m, "r") * dtm) / o(m, "t"))
+            use = bit("use")
+            dnf = torch.where(col(use), dn[0], 0.0)
+            dg = torch.where(v3(use), torch.stack(
+                [(dn[j] - dn[1]) / h for j in (2, 3, 4)], dim=1), 0.0)
+            dex1 = dex * v3(one("nfac")) + ex0.unsqueeze(2) \
+                * dnf.unsqueeze(1) + dds.unsqueeze(1) * rc["ng"].unsqueeze(2) \
+                + v3(ds) * dg
+        ex1 = rc["ex1"]
+        proj = _dot3t(ex1, dex1)
+        dex1n = (dex1 - ex1.unsqueeze(2) * proj.unsqueeze(1)) \
+            / v3(one("en"))
+        dpx, dpz = dx, dz
+        adv = v3(bit("advance"))
+        dx = torch.where(adv, dx + dhds.unsqueeze(1) * (ex0 + ex1)
+                         .unsqueeze(2) + v3(hds) * (dex + dex1n), dx)
+        dex = torch.where(adv, dex1n, dex)
+    ok = rec.ray[:, 2] != 0.0
+    return LosTangents(seg=seg, tsurf=torch.where(col(ok), dtsurf, 0.0))
 
 
 # ---------------------------------------------------------------------------

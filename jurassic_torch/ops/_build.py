@@ -49,12 +49,19 @@ ENTRY_POINTS = {
     "jt_trace_smem_bytes": [_I] * 5 + [_P],   # L G W nlos is_double out
     "jt_trace_fast_ops_check": [_P, ctypes.c_longlong, ctypes.c_longlong,
                                 _P],
-    # 11 inputs (the tracer's 9, profile tangents, window indices), 15
-    # LosData fields, the flag, the LOS and tsurf tangents; R L G W nlos n;
-    # rayds raydz; refrac entry_iters; RE DEG2RAD RAD2DEG KB Z_REFRAC;
-    # is_double stream
-    "jt_trace_rays_jvp": [_P] * 29 + [_I] * 6 + [_D, _D, _I, _I]
+    "jt_trace_registers": [_I, _I, _P],      # is_double refrac out
+    # the tracer's 9 inputs, 15 LosData fields, the flag, the step and ray
+    # records; R L G W nlos; rayds raydz; refrac entry_iters; RE DEG2RAD
+    # RAD2DEG KB Z_REFRAC; is_double stream
+    "jt_trace_jvp_records": [_P] * 27 + [_I] * 5 + [_D, _D, _I, _I]
     + [_D] * 5 + [_I, _P],
+    # z q k, profile tangents, window indices, step and ray records, LOS p
+    # t ds q, the LOS and tsurf tangents; R L G W nlos n refrac; KB;
+    # is_double stream
+    "jt_trace_jvp_tangents": [_P] * 13 + [_I] * 7 + [_D, _I, _P],
+    "jt_trace_jvp_record_len": [_P, _P],               # out: step, ray
+    "jt_trace_jvp_registers": [_I, _I, _P],  # is_double refrac out
+    "jt_trace_quo_check": [_P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "jt_trace_jvp_smem_bytes": [_I] * 5 + [_P],
     # 8 table tensors, 13 LOS and others, first, 3 scratch, rad, tau; R S
     # G W D P T K n_src flags ig_co2 ig_h2o bbt uniform hint; 8 constants;

@@ -32,8 +32,8 @@ def shared_memory_bytes(L: int, G: int, W: int, nlos: int,
     """Bytes of shared memory the kernel gives a ray's block at these sizes
     (its profiles z, p, t, q, k and the step chain's records; the
     kernel's own count, ``entry``: ``jt_trace_smem_bytes`` of the tracer
-    kernel, ``jt_trace_jvp_smem_bytes`` of its tangent kernel, which adds
-    the ray's window indices).  Raises ValueError where they exceed
+    kernel, ``jt_trace_jvp_smem_bytes`` the larger block of the Jacobian's
+    record and tangent kernels).  Raises ValueError where they exceed
     ``SMEM_LIMIT``: the kernels read nothing of a ray's profiles and
     records from global memory."""
     import ctypes
@@ -146,6 +146,21 @@ def trace_rays_cuda(prof: RayProfiles, obs_geo: dict, rayds: float,
                            f"(cudaError {rc})")
     LAUNCHES += 1
     return los, flag
+
+
+def registers(dtype, refrac: bool) -> tuple:
+    """(registers, local bytes) of the tracer kernel's instantiation a
+    launch in ``dtype`` and ``refrac`` takes, from the library
+    (``jt_trace_registers``)."""
+    import ctypes
+
+    from ._build import load_library
+    out = (ctypes.c_int * 2)()
+    rc = load_library().jt_trace_registers(int(dtype == torch.float64),
+                                           int(bool(refrac)), out)
+    if rc != 0:
+        raise RuntimeError(f"jt_trace_registers failed (cudaError {rc})")
+    return out[0], out[1]
 
 
 FAST_OPS_FIELDS = ("sqrt_in_range", "sqrt_differ", "rcp_in_range",

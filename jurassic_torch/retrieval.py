@@ -174,11 +174,13 @@ def autodiff_ray_bytes(model: "ForwardModel", n: int,
 
     On fast tables (the tangent kernels' path, or their plain versions):
     the LOS (``ForwardModel.ray_terms``' ``los``), its tangents
-    [NLOS, 3 + 2 G + W, n] and tsurf's [n] in the model's dtype, the RT
-    tangent kernel's scratch (``ops.ega_jvp.scratch_lengths``, the
-    library's count: a record per segment and channel and its segment
-    index, counted for every one of the NLOS segments, at most that many
-    are valid, and the epilogue's values per channel), and the K rows:
+    [NLOS, 3 + 2 G + W, n] and tsurf's [n] in the model's dtype, the
+    tracer tangent kernels' records (``ops.trace_jvp.record_lengths``, the
+    library's count: a record per step and one per ray), the RT tangent
+    kernel's scratch (``ops.ega_jvp.scratch_lengths``, the library's
+    count: a record per segment and channel and its segment index,
+    counted for every one of the NLOS segments, at most that many are
+    valid, and the epilogue's values per channel), and the K rows:
     drad [D, n] and its masked selection in the model's dtype, their
     float64 copy, the RT
     pass's rad and tau, and the mask.  The profile tangents
@@ -200,13 +202,16 @@ def autodiff_ray_bytes(model: "ForwardModel", n: int,
     import torch
 
     from .ops.ega_jvp import scratch_lengths
+    from .ops.trace_jvp import record_lengths
     ctl = model.ctl
     S, G, W, D = ctl.nlos, ctl.ng, ctl.nw, ctl.nd
     b = torch.empty((), dtype=model.dtype).element_size()
     los = sum(model.ray_terms("fast")["los"])
     tangents = (S * (3 + 2 * G + W) + 1) * n * b
+    step_len, ray_len = record_lengths()
     rec_len, epi_len = scratch_lengths(G, W)
-    records = (S * rec_len + epi_len) * D * b + S * 4 + 8
+    records = ((S * step_len + ray_len) * b
+               + (S * rec_len + epi_len) * D * b + S * 4 + 8)
     rows = D * n * (2 * b + 8) + 2 * D * b + D
     return los + tangents + records + rows
 
@@ -318,8 +323,8 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
        (``geometry.ray_window_indices``), so a multi-profile atmosphere
        gives each scan its own profile by time.
     2. The tracer and its tangents (``geometry.trace_rays_jvp``: the
-       kernel ``csrc/trace_rays_jvp.cu`` on a card, its plain version on
-       the CPU).
+       record and tangent kernels of ``csrc/trace_rays_jvp.cu`` on a
+       card, their plain version on the CPU).
     3. The eager fast-table RT pass and its tangent
        (``ForwardModel.integrate_jvp``: the kernel ``csrc/
        ega_jvp_fast.cu`` on a card, ``forward.rt_integrate_jvp_ref`` on

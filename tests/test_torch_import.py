@@ -94,13 +94,21 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     cuh = src / "trace_common.cuh"
     assert cuh in _build.sources()
     cuh.write_text(cuh.read_text() + "\n// edited\n")
-    assert _build.library_path() not in (name0, name1, name2)
+    name3 = _build.library_path()
+    assert name3 not in (name0, name1, name2)
+    cuh = src / "cp_async.cuh"
+    assert cuh in _build.sources()
+    cuh.write_text(cuh.read_text() + "\n// edited\n")
+    assert _build.library_path() not in (name0, name1, name2, name3)
     assert _build.build_log() == ""
     # every entry point has its argument types in one table
     assert set(_build.ENTRY_POINTS) == {
         "jt_ega_fused_turbo", "jt_ega_fused_table", "jt_peak_fma",
         "jt_peak_sfu", "jt_peak_copy", "jt_trace_rays",
         "jt_trace_fast_ops_check", "jt_trace_smem_bytes",
-        "jt_trace_rays_jvp", "jt_trace_jvp_smem_bytes", "jt_ega_jvp_record",
-        "jt_ega_jvp_contract", "jt_ega_jvp_scratch",
+        "jt_trace_registers", "jt_trace_jvp_records",
+        "jt_trace_jvp_tangents", "jt_trace_jvp_record_len",
+        "jt_trace_jvp_registers", "jt_trace_jvp_smem_bytes",
+        "jt_trace_quo_check",
+        "jt_ega_jvp_record", "jt_ega_jvp_contract", "jt_ega_jvp_scratch",
         "jt_ega_jvp_registers"}

@@ -217,11 +217,13 @@ def test_package_sizing_on_a_card(setup, monkeypatch):
     estimate is the LOS, its tangents [NLOS, 3 + 2 G + W, n] and tsurf's
     [n], and the K rows: drad [D, n] and its masked selection in the
     model's dtype, their float64 copy, rad and tau, and the mask; and
-    the RT tangent kernel's scratch as the library lays it out
-    (``ops.ega_jvp.scratch_lengths``, here a stand-in): a record per
-    segment and channel and its segment index, the epilogue's values per
-    channel and the first-record index."""
-    from jurassic_torch.ops import ega_jvp
+    the tracer tangent kernels' records and the RT tangent kernel's
+    scratch as the library lays them out (``ops.trace_jvp.record_lengths``
+    and ``ops.ega_jvp.scratch_lengths``, here stand-ins): a record per
+    step and one per ray; a record per segment and channel and its
+    segment index, the epilogue's values per channel and the first-record
+    index."""
+    from jurassic_torch.ops import ega_jvp, trace_jvp
 
     s = setup
     m = ForwardModel(dataclasses.replace(s["ctl_t"]),
@@ -231,9 +233,11 @@ def test_package_sizing_on_a_card(setup, monkeypatch):
     asked = []
     monkeypatch.setattr(ega_jvp, "scratch_lengths",
                         lambda g, w: asked.append((g, w)) or (7 * g + 3, 4))
+    monkeypatch.setattr(trace_jvp, "record_lengths", lambda: (84, 4))
     los = S * (6 + 2 * G + W) * 8 + S
     per_ray = tret.autodiff_ray_bytes(m, n)
-    records = (S * (7 * G + 3) + 4) * D * 8 + S * 4 + 8
+    records = ((S * 84 + 4) * 8 + (S * (7 * G + 3) + 4) * D * 8 + S * 4
+               + 8)
     assert per_ray == (los + (S * (3 + 2 * G + W) + 1) * n * 8 + records
                        + D * n * (2 * 8 + 8) + 2 * D * 8 + D)
     assert tret.autodiff_ray_bytes(m, 0) == los + records + 2 * D * 8 + D
