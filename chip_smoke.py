@@ -88,10 +88,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``limb``, ``nadir``, ``ega``, ``flagship``, ``gas30`` and ``fov``
     goldens at the JAX package's bars (``flagship`` and ``gas30`` with
     their tables made by ``tools/make_synthetic_tables.py``), ``fast`` on
-    ``ega`` at 2e-3, no fused kernel launched; at the flagship one
-    float64 trace, the eager ``jax`` pipeline in float64 against the
-    table kernel on the same LOS cast to float32 (1e-5 of max|rad|, 1e-5
-    on tau), each pass's time and device launches;
+    ``ega`` at 2e-3, through the RT kernel (``csrc/ega_rt.cu``: one
+    launch per package, no fused kernel launched); at the flagship one
+    float64 trace, the eager ``jax`` loop (``integrate_eager``) in
+    float64 against the table kernel on the same LOS cast to float32
+    (1e-5 of max|rad|, 1e-5 on tau), each pass's time and device
+    launches;
 11. packages -- the flagship with ``RAYPACK 271`` (4 packages on two CUDA
     streams) under ``KERNEL = auto``, ``pallas`` and the hybrid: bit for
     bit the one-package run, one fused launch per package (the hybrid's
@@ -164,7 +166,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     hybrid (taint on both ranks of the ray split), each rank on its own
     channel range of the tables, its turbo fit read from the cache: bit
     for bit plain ``formod``, launches of both fused kernels under the
-    1 x 2 mesh, medians, and the phase's seconds.
+    1 x 2 mesh, medians, and the phase's seconds;
+15. RT kernel -- ``csrc/ega_rt.cu``, the counterpart of JAX's jitted
+    ``rt_integrate`` scan, at the flagship: ``KERNEL = exact`` on
+    ``fast_to_ega_tables`` of the flagship's tables (u and eps rows of
+    224) in float64 and float32, ``KERNEL = jax`` on the fast tables in
+    float32, and ``KERNEL = auto`` on per-channel axes (demoted to the
+    fast eager mode) in float32: one ``formod`` each through the kernel
+    (one launch a package, no fused launch); on one LOS the kernel
+    against the eager loop (``integrate_eager``), float64 within 1e-13 of
+    max|rad| (tau absolute), float32 within 5e-5, the lanes not bit for
+    bit counted; the kernel's time (CUDA events around each launch,
+    median of 10), registers and bound, the loop's time and device
+    launches, a profiled ``formod``'s launches and idle share, and under
+    ``jax`` the fused table kernel's time on the same LOS;
+16. exact-table Jacobian -- the record kernel's exact instantiation and
+    the contraction against ``rt_jvp_records_ref``,
+    ``rt_jvp_contract_ref`` and ``rt_integrate_jvp_ref`` on the exact
+    tables (1e-10 / 1e-3 of max|drad|; float64 every flagship ray,
+    float32 every fourth) at the flagship retrieval (n = 130);
+    ``kernel_autodiff`` of a ``KERNEL = exact`` model through the tangent
+    kernels (the launch counts set to 0 just before and read just after:
+    each once per package, no other kernel) in float64 and float32, its
+    float64 K against ``kernel_autodiff_jacfwd``'s on every fourth ray
+    (1e-9 of each quantity's max|K|); each kernel's time and bound, and
+    the seconds of the exact route beside the fast route's and the jacfwd
+    route's.
 
 Every model here is built with USEGPU = 1 on the CUDA device and every
 CLI run passes ``USEGPU 1``: nothing can fall back to the CPU or to a
@@ -311,6 +338,22 @@ OPS_RT_ADJ_SEGMENT = 26
 OPS_RT_ADJ_GAS = 13
 # float64 on the tensor cores (DMMA; the same data sheet): the contraction
 PEAK_FP64_TENSOR_FLOPS = 67e12
+# The RT kernel (csrc/ega_rt.cu) against the eager loop on the same LOS,
+# stated before its first build: float64 rad within 1e-13 of max|rad| and
+# tau within 1e-13 (absolute; the step repeats the loop's operations, so
+# the bits are expected, and the bar leaves an ulp's room); float32 at
+# KERNEL_TOL
+RT_KERNEL_TOL = {"float64": 1e-13, "float32": KERNEL_TOL}
+# Float operations of the RT kernel per corner, counted from
+# csrc/ega_rt_common.cuh: a fast corner as the table kernel's (35 + ceil(
+# log2 K): the inversion's halving, two guarded lips, index arithmetic,
+# exp2 and log2); an exact corner two searches of ceil(log2 U) compares,
+# two guarded lips (14) and the index clamps and loads' arithmetic (10);
+# per gas and segment OPS_PER_GAS["table"], per segment OPS_PER_SEGMENT
+OPS_RT_EXACT_CORNER = 24
+# the record kernel's exact corner: OPS_RT_JVP_CORNER's 43 without the
+# fast halving, and two searches of ceil(log2 U) compares
+OPS_RT_JVP_EXACT_CORNER = 43
 
 
 def roughen(ft):
@@ -939,10 +982,12 @@ def golden_dir(case: str) -> Path:
 def eager_golden(torch, ega_fused, ForwardModel, dev, case: str,
                  kernel: str) -> None:
     """``KERNEL = exact`` (or ``fast``) in float64 on the card against
-    the C oracle's rad.tab at the JAX package's bar."""
+    the C oracle's rad.tab at the JAX package's bar: the RT kernel
+    (``ops.ega_rt``), once per package, and no fused kernel."""
     import numpy as np
     from jurassic_torch.config import read_ctl
     from jurassic_torch.io_tab import read_atm, read_obs
+    from jurassic_torch.ops import ega_rt
     d = golden_dir(case)
     ctl = read_ctl(["formod", str(next(d.glob("*.ctl"))), "o", "a", "r"],
                    verbose=False)
@@ -954,15 +999,18 @@ def eager_golden(torch, ega_fused, ForwardModel, dev, case: str,
     t0 = time.perf_counter()
     fm = ForwardModel(ctl, directory=str(d), device=dev,
                       dtype=torch.float64)
-    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+    npk = -(-obs.nr // (fm.package_size(obs.nr) or obs.nr))
+    ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = ega_rt.LAUNCHES = 0
     fm.formod(atm, obs)
-    launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE)
+    launches = (ega_fused.LAUNCHES, ega_fused.LAUNCHES_TABLE,
+                ega_rt.LAUNCHES)
     dt = time.perf_counter() - t0
-    want = "exact" if kernel == "exact" else "fast"
+    want = "exact kernel" if kernel == "exact" else "fast kernel"
     if (fm.last_variant != want or fm.device.type != "cuda"
-            or launches != (0, 0)):
+            or launches != (0, 0, npk)):
         fail(f"golden {case} ({kernel}): ran {fm.last_variant} on "
-             f"{fm.device}, fused launches {launches}")
+             f"{fm.device}, fused and RT kernel launches {launches}, "
+             f"expected (0, 0, {npk})")
     ref = np.loadtxt(d / ("rad_fov.tab" if case == "fov" else "rad.tab"))
     nd = ctl.nd
     rad_ref, tau_ref = ref[:, 10:10 + nd], ref[:, 10 + nd:10 + 2 * nd]
@@ -981,7 +1029,8 @@ def eager_golden(torch, ega_fused, ForwardModel, dev, case: str,
     e_tau = np.abs(obs.tau - tau_ref).max()
     e_tp = 0.0 if tp_bar is None else max(
         np.abs(obs.tpz - ref[:, 7]).max(), np.abs(obs.tplat - ref[:, 9]).max())
-    print(f"eager golden {case} ({kernel}, float64 on the card): "
+    print(f"eager golden {case} ({kernel}, float64 on the card, the RT "
+          f"kernel: {launches[2]} launch(es), {npk} package(s)): "
           f"{obs.nr} rays x {nd} channels x {ctl.ng} gases; rad "
           f"{e_rad:.3e} of max|rad| (bar {rad_bar}), tau {e_tau:.3e} (bar "
           f"{tau_bar}), tangent points {e_tp:.3e} (bar {tp_bar}); "
@@ -1041,7 +1090,8 @@ def profiled_call(torch, fn, label: str, names: bool = False, reset=None):
 
     from jurassic_torch.ops import ega_fused
     kinds = ("ega_fused_kernel", "trace_rays_kernel", "trace_jvp_record",
-             "trace_jvp_tangent", "ega_rec_kernel", "ega_jvp_contract")
+             "trace_jvp_tangent", "ega_rec_kernel", "ega_jvp_contract",
+             "ega_rt_kernel")
     for attempt in range(1, PROFILE_TRIES + 1):
         if reset is not None:
             reset()
@@ -1106,7 +1156,7 @@ def eager_vs_table(torch, ForwardModel, flagship, fm_p, dev):
     los32 = LosData(*(f.float() if f.is_floating_point() else f
                       for f in los64))
     out_e, ms_e, n_e, busy_e = device_pass(
-        torch, lambda: fm_e.integrate(los64), "eager float64 RT pass")
+        torch, lambda: fm_e.integrate_eager(los64), "eager float64 RT pass")
     out_t, ms_t, n_t, busy_t = device_pass(
         torch, lambda: fm_p.integrate(los32), "table kernel RT pass")
     scale = float(out_e.rad.abs().max())
@@ -1119,10 +1169,36 @@ def eager_vs_table(torch, ForwardModel, flagship, fm_p, dev):
           f"launches, device busy {busy_e:.1f} ms; table kernel + epilogue "
           f"{ms_t:.2f} ms, {n_t} device launches, device busy "
           f"{busy_t:.2f} ms", flush=True)
-    if not (fm_e.last_variant == "fast" and out_e.rad.dtype == torch.float64
+    if not (fm_e.kernel_mode == "fast" and out_e.rad.dtype == torch.float64
             and e_rad <= EAGER_VS_TABLE_TOL and e_tau <= EAGER_VS_TABLE_TOL):
         fail("the eager float64 pipeline and the table kernel disagree")
-    return fm_e, ms_e, n_e
+    # the RT kernel of this model (KERNEL = jax, float64) on the same LOS
+    # against the loop: the fast tables' float64 configuration of phase 15
+    from jurassic_torch.ops import ega_rt
+    out_k = fm_e.integrate(los64)
+    torch.cuda.synchronize()
+    off = (int((out_k.rad != out_e.rad).sum()),
+           int((out_k.tau != out_e.tau).sum()))
+    d_k = (float((out_k.rad - out_e.rad).abs().max()) / scale,
+           float((out_k.tau - out_e.tau).abs().max()))
+    ms_k = kernel_ms(torch, lambda: fm_e.integrate(los64), "jt_ega_rt",
+                     N_KERNEL_RUNS)
+    b_ms, b_by, _, _ = rt_bound(torch, fm_e, los64, False)
+    regs = ega_rt.registers(fm_e.eager_tables().tbl.uniform, False,
+                            torch.float64)
+    print(f"RT kernel, jax float64, vs the eager loop on the same LOS: rad "
+          f"{d_k[0]:.3e} of max|rad|, tau {d_k[1]:.3e} (bar "
+          f"{RT_KERNEL_TOL['float64']}); lanes not bit for bit: rad "
+          f"{off[0]}, tau {off[1]}; {ms_k:.3f} ms (median of "
+          f"{N_KERNEL_RUNS}), {regs} registers, bound {b_ms:.4f} ms by "
+          f"{b_by}", flush=True)
+    if not (fm_e.last_variant == "fast kernel"
+            and max(d_k) <= RT_KERNEL_TOL["float64"]):
+        fail("the RT kernel (jax, float64) and the eager loop disagree")
+    return fm_e, {"ms": ms_k, "plain_ms": ms_e, "plain_device_launches": n_e,
+                  "bound_ms": b_ms, "bound_by": b_by, "registers": regs,
+                  "lanes_not_bit_for_bit": off, "max_abs_err": max(
+                      float((out_k.rad - out_e.rad).abs().max()), d_k[1])}
 
 
 def memory_check(torch, fm, atm, obs, label: str) -> None:
@@ -1284,18 +1360,19 @@ def fd_vs_ad(K_fd, K_ad, label: str) -> float:
 
 JVP_COUNTS = ("tracer tangent entry", "tracer record", "tracer tangent",
               "RT tangent entry", "RT record", "RT contraction", "tracer",
-              "turbo", "table")
+              "turbo", "table", "RT primal")
 
 
 def jvp_launches(reset: bool = False) -> tuple:
     """The launch counts of ``JVP_COUNTS``, set to 0 first where
     ``reset``."""
-    from jurassic_torch.ops import ega_fused, ega_jvp, trace, trace_jvp
+    from jurassic_torch.ops import (ega_fused, ega_jvp, ega_rt, trace,
+                                    trace_jvp)
     mods = ((trace_jvp, "LAUNCHES"), (trace_jvp, "LAUNCHES_RECORD"),
             (trace_jvp, "LAUNCHES_TANGENT"), (ega_jvp, "LAUNCHES"),
             (ega_jvp, "LAUNCHES_RECORD"), (ega_jvp, "LAUNCHES_CONTRACT"),
             (trace, "LAUNCHES"), (ega_fused, "LAUNCHES"),
-            (ega_fused, "LAUNCHES_TABLE"))
+            (ega_fused, "LAUNCHES_TABLE"), (ega_rt, "LAUNCHES"))
     if reset:
         for m, k in mods:
             setattr(m, k, 0)
@@ -1304,10 +1381,12 @@ def jvp_launches(reset: bool = False) -> tuple:
 
 def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
                  raypack: int = 0, rows=None, profiled: bool = True,
-                 jacfwd: bool = False):
+                 jacfwd: bool = False, kernel: str = "jax"):
     """``kernel_autodiff`` (``jacfwd``: ``kernel_autodiff_jacfwd``) on the
     full flagship retrieval state (the rays ``rows`` of the scan, default
-    all), under the CUDA-activity profiler where ``profiled``: returns
+    all) of a ``KERNEL = kernel`` model (``exact``: on
+    ``fast_to_ega_tables`` of the flagship's tables), under the
+    CUDA-activity profiler where ``profiled``: returns
     (K, rays, packages, launches of ``jvp_launches``, wall s) after
     printing wall time, launches, busy time, packages and the peak memory
     against the sizing estimate.  The launch counts are set to 0 just
@@ -1318,11 +1397,13 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
                                           autodiff_ray_bytes,
                                           kernel_autodiff,
                                           kernel_autodiff_jacfwd)
-    ctl, ft, atm, obs = retrieval_ctl(flagship, "jax", "full")
+    from jurassic_torch.models.synthetic import fast_to_ega_tables
+    ctl, ft, atm, obs = retrieval_ctl(flagship, kernel, "full")
     ctl.raypack = raypack
     if rows is not None:
         obs = _obs_rows(obs, rows)
-    m = ForwardModel(ctl, fast_tables=ft, device=dev, dtype=dtype)
+    tables = fast_to_ega_tables(ft) if kernel == "exact" else None
+    m = ForwardModel(ctl, tables, fast_tables=ft, device=dev, dtype=dtype)
     n = atm2x(ctl, atm)[0].size
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1359,7 +1440,7 @@ def autodiff_run(torch, ForwardModel, flagship, dev, dtype, label: str,
     if not peak / AD_EST_RATIO <= est <= AD_EST_RATIO * peak:
         fail(f"{label}: the sizing estimate is not within {AD_EST_RATIO}x "
              "of the measured peak")
-    want = (0,) * 9 if jacfwd else (npk,) * 6 + (0, 0, 0)
+    want = (0,) * 10 if jacfwd else (npk,) * 6 + (0,) * 4
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want}")
     return K, obs.nr, npk, counts, wall
@@ -2172,6 +2253,336 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
             fd_launches["auto"][2]), rec
 
 
+def rt_bound(torch, m, los, exact: bool) -> tuple:
+    """(bound_ms, bound_by, bytes, operations) of one RT kernel pass on
+    ``los``: the LOS fields it reads, the tables, the continua and source
+    rows once, rad and tau written once, over the HBM rate; the float
+    operations of this run's valid segments over the dtype's peak."""
+    e = m.eager_tables()
+    tbl = e.tbl
+    R, S = los.ds.shape
+    G, W, D = los.u.shape[2], los.k.shape[2], m.ctl.nd
+    b = los.p.element_size()
+    n_active = int(los.valid.sum())
+    nb = lambda *xs: sum(x.numel() * x.element_size() for x in xs)
+    if exact:
+        U = tbl.u.shape[-1]
+        tables = nb(tbl.u, tbl.eps, tbl.p, tbl.t) + tbl.row_monotone.numel()
+        corner = OPS_RT_EXACT_CORNER + 2 * math.ceil(math.log2(U))
+    else:
+        K = tbl.eps.shape[3]
+        tables = nb(tbl.eps, tbl.log2_u0, tbl.p, tbl.t) + tbl.valid.numel()
+        corner = 35 + math.ceil(math.log2(K))
+    tables += 4 * (tbl.nu.numel() + tbl.nt.numel() + tbl.np_.numel())
+    n_bytes = (nb(los.p, los.t, los.ds, los.q, los.k, los.u, los.valid,
+                  los.tsurf) + tables + (16 + m.sr.shape[0] + 1) * D * b
+               + 2 * R * D * b)
+    ops = n_active * D * (G * (4 * corner + OPS_PER_GAS["table"])
+                          + OPS_PER_SEGMENT + 2 * W)
+    peak = PEAK_FP64_FLOPS if los.p.dtype == torch.float64 \
+        else PEAK_FP32_FLOPS
+    t_b, t_o = n_bytes / PEAK_HBM_BYTES, ops / peak
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            n_bytes, ops)
+
+
+def rt_kernel_phase(torch, ForwardModel, flagship, dev, jax64: dict) -> dict:
+    """Phase 15, the RT kernel (``csrc/ega_rt.cu``, the counterpart of
+    JAX's jitted ``rt_integrate``) at the flagship: ``KERNEL = exact`` on
+    ``fast_to_ega_tables`` of the flagship's tables in float64 and float32,
+    ``KERNEL = jax`` on the fast tables in float32, and ``KERNEL = auto``
+    on per-channel axes (``workloads.perturbed_axes``, which demotes to
+    the fast eager mode) in float32.  Each: one ``formod`` (the main path:
+    the counts set to 0 just before and read just after; one RT launch,
+    no fused launch, the variant named); on one LOS the kernel
+    (``ForwardModel.integrate``) against the eager loop
+    (``integrate_eager``) at RT_KERNEL_TOL, the lanes not bit for bit
+    counted; the kernel's ms (median of N_KERNEL_RUNS, CUDA events around
+    each launch), registers and bound; the loop's ms and device launches
+    (one timed, one profiled pass); a profiled formod's launches and idle
+    share; under ``jax`` the fused table kernel's ms on the same LOS.
+    ``jax64`` is phase 10's hold and time of the kernel under ``jax`` in
+    float64.  Returns the kernels line's record of ``ega_rt``."""
+    import numpy as np
+    from jurassic_torch.models.synthetic import fast_to_ega_tables
+    from jurassic_torch.ops import ega_fused, ega_rt
+    from jurassic_torch.workloads import perturbed_axes
+    rec = {"jax float64": {k: v for k, v in jax64.items()
+                           if k != "max_abs_err"}}
+    worst = jax64["max_abs_err"]
+    for label, kernel, dtype, axes in (
+            ("exact float64", "exact", torch.float64, "uniform"),
+            ("exact float32", "exact", torch.float32, "uniform"),
+            ("jax float32", "jax", torch.float32, "uniform"),
+            ("auto on per-channel axes float32", "auto", torch.float32,
+             "per_channel")):
+        ctl, ft, atm, obs = flagship()
+        ctl.usetpu, ctl.kernel = 1, kernel
+        if axes == "per_channel":
+            ft = perturbed_axes(ft, seed=1)
+        tables = fast_to_ega_tables(ft) if kernel == "exact" else None
+        t0 = time.perf_counter()
+        m = ForwardModel(ctl, tables, fast_tables=ft, device=dev,
+                         dtype=dtype)
+        e = m.eager_tables()
+        exact = kernel == "exact"
+        n_lin = 0 if not exact else int((e.tbl.row_monotone != 3).sum())
+        print(f"RT kernel, {label}: model built in "
+              f"{time.perf_counter() - t0:.1f} s; kernel_mode "
+              f"{m.kernel_mode}, axes uniform {e.tbl.uniform}"
+              + (f", {tuple(e.tbl.u.shape)} u and eps rows "
+                 f"({2 * e.tbl.u.numel() * 4 / 1e6:.1f} MB), {n_lin} cells "
+                 f"counted linearly" if exact else ""), flush=True)
+        npk = -(-obs.nr // (m.package_size(obs.nr) or obs.nr))
+        ega_rt.LAUNCHES = ega_fused.LAUNCHES = ega_fused.LAUNCHES_TABLE = 0
+        o = obs.copy()
+        m.formod(atm.copy(), o)
+        launches = (ega_rt.LAUNCHES, ega_fused.LAUNCHES,
+                    ega_fused.LAUNCHES_TABLE)
+        want = f"{m.kernel_mode} kernel"
+        if (launches != (npk, 0, 0) or m.last_variant != want
+                or not np.isfinite(o.rad).all()):
+            fail(f"RT kernel, {label}: formod ran {m.last_variant} with "
+                 f"launches (RT, turbo, table) {launches}, expected {want} "
+                 f"and ({npk}, 0, 0)")
+        los = m.trace(atm.copy(), obs.copy())
+        out_k = m.integrate(los)
+        out_e, ms_e, n_e, busy_e = device_pass(
+            torch, lambda: m.integrate_eager(los), f"eager loop, {label}")
+        torch.cuda.synchronize()
+        scale = float(out_e.rad.abs().max())
+        d_rad = float((out_k.rad - out_e.rad).abs().max())
+        d_tau = float((out_k.tau - out_e.tau).abs().max())
+        off = (int((out_k.rad != out_e.rad).sum()),
+               int((out_k.tau != out_e.tau).sum()))
+        bar = RT_KERNEL_TOL[str(dtype)[6:]]
+        print(f"RT kernel vs the eager loop, {label}, {los.ds.shape[0]} "
+              f"rays: rad {d_rad / scale:.3e} of max|rad| {scale:.4e}, tau "
+              f"{d_tau:.3e} (bar {bar}); lanes not bit for bit: rad "
+              f"{off[0]}, tau {off[1]} of {out_e.rad.numel()}", flush=True)
+        if not (torch.isfinite(out_k.rad).all() and scale > 0
+                and d_rad <= bar * scale and d_tau <= bar):
+            fail(f"RT kernel, {label}: kernel and eager loop disagree")
+        worst = max(worst, d_rad, d_tau)
+        ms = kernel_ms(torch, lambda: m.integrate(los), "jt_ega_rt",
+                       N_KERNEL_RUNS)
+        regs = ega_rt.registers(e.tbl.uniform, exact, dtype)
+        b_ms, b_by, nb, ops = rt_bound(torch, m, los, exact)
+        _, wall, n_f, busy_f = profiled_call(
+            torch, lambda: m.formod(atm.copy(), obs.copy()),
+            f"formod {label}")
+        idle = 1.0 - busy_f / (wall * 1e3)
+        extra = ""
+        r = {"launches": launches[0], "ms": ms, "plain_ms": ms_e,
+             "plain_device_launches": n_e,
+             "bound_ms": b_ms, "bound_by": b_by, "registers": regs,
+             "lanes_not_bit_for_bit": off, "formod_launches": n_f,
+             "formod_idle_share": idle}
+        if kernel == "jax":
+            ctl_p = flagship()[0]
+            ctl_p.usetpu, ctl_p.kernel = 1, "pallas"
+            fm_p = ForwardModel(ctl_p, fast_tables=ft, device=dev)
+            r["table_kernel_ms"] = cuda_ms(
+                torch, lambda: ega_fused.rt_fused_table(
+                    fm_p.table_tbl, fm_p.cc_rows, los, fm_p.flags,
+                    fm_p.ig_co2, fm_p.ig_h2o), N_KERNEL_RUNS)
+            extra = (f"; the fused table kernel on the same LOS "
+                     f"{r['table_kernel_ms']:.3f} ms")
+            del fm_p
+        print(f"RT kernel, {label}: {ms:.3f} ms (median of "
+              f"{N_KERNEL_RUNS}, CUDA events around each launch), "
+              f"{regs} registers; bound {b_ms:.4f} ms by {b_by} "
+              f"({nb / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); the eager loop "
+              f"{ms_e:.1f} ms, {n_e} device launches (busy {busy_e:.1f} "
+              f"ms); a profiled formod {wall * 1e3:.1f} ms, {n_f} device "
+              f"launches, busy {busy_f:.2f} ms, idle {idle:.1%}" + extra,
+              flush=True)
+        rec[label] = r
+        del m, los, out_k, out_e, e
+        torch.cuda.empty_cache()
+    main = rec["exact float64"]
+    return {"name": "ega_rt", "route": "cuda",
+            "source": "jurassic_torch/csrc/ega_rt.cu",
+            "replaces": "jurassic_tpu/forward.py:99",
+            "launches": main["launches"],
+            "launches_on": "flagship formod KERNEL = exact, float64, one "
+                           "package, one call",
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "configurations": rec}
+
+
+def exact_rt_args(torch, ForwardModel, flagship, dev, dtype, rows=None):
+    """(model, LOS, LOS tangents, ``rt_jvp_fast_cuda``'s arguments) of the
+    flagship retrieval (n = 130) on a ``KERNEL = exact`` model in
+    ``dtype``, the tangents from the tracer's tangent kernels (the rays
+    ``rows``, default all)."""
+    from jurassic_torch.forward import _obs_rows
+    from jurassic_torch.models.synthetic import fast_to_ega_tables
+    from jurassic_torch.ops.trace_jvp import trace_rays_jvp_cuda
+    from jurassic_torch.retrieval import autodiff_seed, package_tangents
+    ctl, ft, atm, obs = retrieval_ctl(flagship, "exact", "full")
+    if rows is not None:
+        obs = _obs_rows(obs, rows)
+    m = ForwardModel(ctl, fast_to_ega_tables(ft), fast_tables=ft, device=dev,
+                     dtype=dtype)
+    seed = autodiff_seed(ctl, atm, m)
+    prof, ptan, geo = package_tangents(ctl, atm, obs, m, seed)
+    los, tan, _ = trace_rays_jvp_cuda(prof, ptan, geo, ctl.rayds, ctl.raydz,
+                                      bool(ctl.refrac), ctl.nlos)
+    e = m.eager_tables()
+    return m, los, tan, (e.tbl, m.sr, m.st, m.nu, e.cc, e.window, los, tan,
+                         m.flags, m.ig_co2, m.ig_h2o, bool(ctl.write_bbt))
+
+
+def exact_jacobian_phase(torch, ForwardModel, flagship, dev) -> dict:
+    """Phase 16, the exact-table Jacobian (JAX's ``jax.jit(jax.jacfwd)``
+    on ``ega_eps_exact``) at the flagship retrieval (n = 130): the record
+    kernel's exact instantiation and the contraction against their plain
+    versions (``rt_kernels_hold``: ``rt_jvp_records_ref``,
+    ``rt_jvp_contract_ref``, ``rt_integrate_jvp_ref`` on exact tables) at
+    AD_KERNEL_TOL, float64 on every ray, float32 on every fourth;
+    ``kernel_autodiff`` on a ``KERNEL = exact`` model (the main path: the
+    tangent kernels once per package, no other kernel; float64, and
+    float32 profiled) and its float64 K against
+    ``kernel_autodiff_jacfwd``'s on every fourth ray, per quantity within
+    AD_JACFWD_TOL; each RT tangent kernel's ms (median of 5) and bound,
+    the seconds of the exact route beside the fast route's and the jacfwd
+    route's.  Returns the kernels line's record of the exact record
+    kernel."""
+    import numpy as np
+    from jurassic_torch.ops import ega_jvp as ej
+    from jurassic_torch.retrieval import atm2x
+    holds = {}
+    plain = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain[key] = (time.perf_counter() - t0) * 1e3
+        return out
+    timing = {}
+    for dtype, rows in ((torch.float64, None),
+                        (torch.float32, slice(None, None, 4))):
+        key = str(dtype)[6:]
+        m, los, tan, rargs = exact_rt_args(torch, ForwardModel, flagship,
+                                           dev, dtype, rows)
+        R, S = los.ds.shape
+        G, W, D, n = los.u.shape[2], los.k.shape[2], m.ctl.nd, \
+            tan.seg.shape[3]
+        errs, bits, d_abs, _ = rt_kernels_hold(
+            torch, rargs, S, G, W, timed if dtype == torch.float64 else None)
+        torch.cuda.empty_cache()
+        holds[key] = (errs, d_abs)
+        print(f"exact RT tangent kernels vs plain versions at the flagship "
+              f"({R} rays, {key}, n = {n}): " + ", ".join(
+                  f"{k} {v:.1e}" for k, v in errs.items())
+              + "; bit for bit " + ", ".join(
+                  f"{k} {v}" for k, v in bits.items()), flush=True)
+        if not max(errs.values()) <= AD_KERNEL_TOL[key]:
+            fail(f"the exact RT tangent kernels vs their plain versions "
+                 f"({key})")
+        if rows is not None:                 # the timing on every ray
+            del m, los, tan, rargs
+            torch.cuda.empty_cache()
+            m, los, tan, rargs = exact_rt_args(torch, ForwardModel,
+                                               flagship, dev, dtype)
+        R = los.ds.shape[0]
+        ms = kernel_ms_each(torch, lambda: ej.rt_jvp_fast_cuda(*rargs),
+                            ("jt_ega_jvp_record", "jt_ega_jvp_contract"), 5)
+        e = m.eager_tables()
+        b = los.p.element_size()
+        n_active = int(los.valid.sum())
+        F = 3 + 2 * G + W
+        U = e.tbl.u.shape[-1]
+        r_bytes = (sum(x.numel() * x.element_size() for x in (
+            los.p, los.t, los.ds, los.q, los.k, los.u, los.valid, los.tsurf,
+            e.tbl.u, e.tbl.eps, e.tbl.p, e.tbl.t))
+            + 4 * (e.tbl.nu.numel() + e.tbl.nt.numel() + e.tbl.np_.numel())
+            + e.tbl.row_monotone.numel() + m.sr.numel() * b
+            + 3 * R * D * b + n_active * (F * D * b + 4))
+        corner = OPS_RT_JVP_EXACT_CORNER + 2 * math.ceil(math.log2(U))
+        r_ops = n_active * D * (4 * G * corner + G * OPS_RT_JVP_GAS
+                                + OPS_RT_JVP_SEGMENT + OPS_RT_ADJ_SEGMENT
+                                + G * OPS_RT_ADJ_GAS)
+        peak = PEAK_FP64_FLOPS if dtype == torch.float64 else PEAK_FP32_FLOPS
+        t_b, t_o = r_bytes / PEAK_HBM_BYTES, r_ops / peak
+        reg_rec, reg_con = ej.registers(G, W, S, e.tbl.uniform, dtype,
+                                        exact=True)
+        timing[key] = {"ms": ms["jt_ega_jvp_record"],
+                       "contract_ms": ms["jt_ega_jvp_contract"],
+                       "bound_ms": max(t_b, t_o) * 1e3,
+                       "bound_by": "bytes" if t_b >= t_o else "operations",
+                       "registers": reg_rec}
+        print(f"ega_jvp_record (exact) at the flagship ({R} rays, "
+              f"{n_active} valid segments, n = {n}, {key}): "
+              f"{ms['jt_ega_jvp_record']:.3f} ms, the contraction on its "
+              f"records {ms['jt_ega_jvp_contract']:.3f} ms (medians of 5); "
+              f"bound {max(t_b, t_o) * 1e3:.3f} ms by "
+              f"{timing[key]['bound_by']} ({r_bytes / 1e9:.2f} GB, "
+              f"{r_ops / 1e9:.1f} GFLOP); registers {reg_rec} / {reg_con}",
+              flush=True)
+        del m, los, tan, rargs, e
+        torch.cuda.empty_cache()
+    K64, nr, npk, counts64, wall64 = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float64,
+        "flagship retrieval autodiff, KERNEL = exact (tangent kernels)",
+        profiled=False, kernel="exact")
+    K32, _, _, counts32, wall32 = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float32,
+        "flagship retrieval autodiff, KERNEL = exact (tangent kernels)",
+        kernel="exact")
+    _, _, _, _, wall_fast = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float64,
+        "flagship retrieval autodiff, KERNEL = jax (tangent kernels)",
+        profiled=False)
+    rows4 = slice(None, None, 4)
+    Kj, nr4, _, _, wall_j = autodiff_run(
+        torch, ForwardModel, flagship, dev, torch.float64,
+        "flagship autodiff, KERNEL = exact, every fourth ray (jacfwd "
+        "route)", rows=rows4, profiled=False, jacfwd=True, kernel="exact")
+    ctl, _, atm, _ = retrieval_ctl(flagship, "exact", "full")
+    _, iqa, _ = atm2x(ctl, atm)
+    ref = K64.reshape(nr, -1, K64.shape[1])[rows4].reshape(Kj.shape)
+    e_j = by_quantity(ctl, iqa, ref, Kj)
+    e32 = by_quantity(ctl, iqa, K32, K64)
+    print("KERNEL = exact, float64 tangent kernels vs the jacfwd route on "
+          f"every fourth ray ({nr4} rays), by quantity, of its own max|K| "
+          f"(bar {AD_JACFWD_TOL}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in e_j.items()), flush=True)
+    print("KERNEL = exact, float32 vs float64 (tangent kernels), by "
+          "quantity, of its own max|K|: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in e32.items()), flush=True)
+    print(f"kernel_autodiff at the flagship (n = {K64.shape[1]}, {nr} rays, "
+          f"float64): KERNEL = exact {wall64:.3f} s, KERNEL = jax "
+          f"{wall_fast:.3f} s (tangent kernels); the jacfwd route on "
+          f"KERNEL = exact {wall_j:.1f} s for {nr4} rays; float32 exact "
+          f"{wall32:.3f} s (profiled)", flush=True)
+    if not all(v <= AD_JACFWD_TOL for v in e_j.values()):
+        fail("the KERNEL = exact Jacobian through the tangent kernels is "
+             "not the jacfwd route's")
+    t64 = timing["float64"]
+    return {"name": "ega_jvp_record_exact", "route": "cuda",
+            "source": "jurassic_torch/csrc/ega_jvp_fast.cu",
+            "replaces": "jurassic_tpu/retrieval.py:281",
+            "launches": counts64[4],
+            "launches_on": "kernel_autodiff, flagship, KERNEL = exact, "
+                           "float64, n = 130",
+            "max_abs_err": max(holds["float64"][1]["ega_jvp_record"],
+                               holds["float32"][1]["ega_jvp_record"]),
+            "ms": t64["ms"], "plain_ms": plain.get("record"),
+            "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
+            "library_ms": None, "registers": t64["registers"],
+            "contract_ms": t64["contract_ms"],
+            "entry_plain_ms": plain.get("rt"),
+            "float32": timing["float32"],
+            "autodiff_s": {"exact": wall64, "fast": wall_fast,
+                           "jacfwd_exact_every_4th_ray": wall_j}}
+
+
 def mgpu_rank(rank: int, port: int, ref_file: str, out_dir: str) -> None:
     """One of two gloo ranks sharing cuda:0 (phase 14): the flagship
     through ``ShardedForwardModel`` on the 2 x 1 and 1 x 2 meshes in
@@ -2654,7 +3065,7 @@ def main() -> None:
     for case in EAGER_GOLDENS:
         eager_golden(torch, ega_fused, ForwardModel, dev, case, "exact")
     eager_golden(torch, ega_fused, ForwardModel, dev, "ega", "fast")
-    fm_e, ms_e, n_e = eager_vs_table(torch, ForwardModel, flagship, fm_p,
+    fm_e, rt_jax64 = eager_vs_table(torch, ForwardModel, flagship, fm_p,
                                      dev)
 
     phase("ray packages (RAYPACK)")
@@ -2662,11 +3073,11 @@ def main() -> None:
     print(f"RAYPACK 0 at the flagship: {fm.per_ray_device_bytes()} B/ray "
           f"(auto), {fm_p.per_ray_device_bytes()} (pallas), "
           f"{fm_h.per_ray_device_bytes()} (hybrid), "
-          f"{fm_e.per_ray_device_bytes()} (eager jax, float64); "
+          f"{fm_e.per_ray_device_bytes()} (jax, float64, the RT kernel); "
           f"{free / 1e9:.2f} GB free of {total / 1e9:.2f} GB; "
           f"{fm.package_size(R) or R} rays per package", flush=True)
     for m, label in ((fm, "auto"), (fm_p, "pallas"), (fm_h, "hybrid"),
-                     (fm_e, "eager jax float64")):
+                     (fm_e, "jax float64 (RT kernel)")):
         memory_check(torch, m, atm, obs, label)
     del fm_e
     pk = RAYPACK
@@ -2698,8 +3109,17 @@ def main() -> None:
     (mg_turbo, mg_table), mg_calls = mgpu_phase(
         torch, ForwardModel, flagship, ft, tt, stats, tt_r, stats_r, dev)
 
+    phase("RT kernel (jitted rt_integrate's counterpart)")
+    torch.cuda.empty_cache()
+    rt_rec = rt_kernel_phase(torch, ForwardModel, flagship, dev, rt_jax64)
+
+    phase("exact-table Jacobian")
+    torch.cuda.empty_cache()
+    exact_rec = exact_jacobian_phase(torch, ForwardModel, flagship, dev)
+
     import_hygiene()
 
+    phase("kernel record")
     print(card, flush=True)
     fused = {"route": "cuda", "library_ms": None}
     print(json.dumps({"kernels": [
@@ -2762,6 +3182,7 @@ def main() -> None:
                else "ega_jvp_fast.cu"),
            "replaces": "jurassic_tpu/retrieval.py:281", **r}
           for name, r in jvp_rec.items()),
+        rt_rec, exact_rec,
         *probe_records], "profile_attempts": PROFILE_ATTEMPTS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

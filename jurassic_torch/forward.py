@@ -22,9 +22,12 @@ Kernel modes (``KERNEL``):
   the fit, and to the eager ``fast`` pipeline on tables whose axes are
   not channel-uniform (as JAX sends those to its jnp pipeline).  On the
   CPU it runs the plain fused version, where JAX runs its jnp pipeline.
-* ``exact``, ``jax`` / ``fast``: the eager pipeline :func:`rt_integrate`
-  (``ops.ega``), plain tensor code in the model's dtype -- the oracle,
-  in float64, on the CPU or on the card.
+* ``exact``, ``jax`` / ``fast``: :func:`rt_integrate` on the exact or
+  the fast tables in the model's dtype: on a card one launch of the RT
+  kernel (``ops.ega_rt``, the counterpart of JAX's jitted scan), on the
+  CPU the eager loop (``ops.ega``, plain tensor code), which
+  :meth:`ForwardModel.integrate_eager` runs on either device -- the
+  oracle, in float64.
 
 ``IP = 2/3`` traces the geometry on 1-D dummy profiles and re-samples
 the atmosphere along each LOS on the host (:meth:`ForwardModel.
@@ -53,8 +56,8 @@ from .io_tab import Atm, Obs, read_shape
 from .ops.continua import (ContinuaCoeffs, beta_ds, beta_ds_partials,
                            continua_to_device, precompute_continua)
 from .ops.ega import (EgaDeviceTables, FastDeviceTables, ega_eps_exact,
-                      ega_eps_fast, ega_eps_fast_partials,
-                      ega_tables_to_device, fast_tables_to_device)
+                      ega_eps_fast, ega_eps_partials, ega_tables_to_device,
+                      fast_tables_to_device)
 from .ops.ega_fused import (N_SEG, pack_continua, rt_fused_table,
                             rt_fused_turbo)
 from .ops.table_pack import TableTables, build_table_tables
@@ -194,17 +197,18 @@ def rt_integrate(tbl, sr, st, nu, cc, window, los: LosData, tsurf, flags,
     return _surface_and_bbt(rad, tau, sr, st, nu, tsurf, bbt)
 
 
-def rt_integrate_jvp_ref(tbl: FastDeviceTables, sr, st, nu, cc, window,
-                         los: LosData, tan: LosTangents, flags, ig_co2: int,
-                         ig_h2o: int, bbt: bool):
-    """(RtOut, drad [R, D, n]): :func:`rt_integrate` with ``use_fast`` on
-    ``los`` (its result bit for bit) and its forward-mode tangent in the n
-    directions of ``tan`` (``geometry.trace_rays_jvp``), surface and
-    brightness epilogue included -- the plain version of the RT JVP
-    kernel (``csrc/ega_jvp_fast.cu``).
+def rt_integrate_jvp_ref(tbl: EgaDeviceTables | FastDeviceTables, sr, st,
+                         nu, cc, window, los: LosData, tan: LosTangents,
+                         flags, ig_co2: int, ig_h2o: int, bbt: bool):
+    """(RtOut, drad [R, D, n]): :func:`rt_integrate` on ``los`` with the
+    tables' own lookups (the exact tables' or the fast ones'; its result
+    bit for bit) and its forward-mode tangent in the n directions of
+    ``tan`` (``geometry.trace_rays_jvp``), surface and brightness epilogue
+    included -- the plain version of the RT JVP kernels
+    (``csrc/ega_jvp_fast.cu``).
 
     Each (segment, channel) takes its local partials once
-    (``ops.ega.ega_eps_fast_partials``, ``ops.continua.
+    (``ops.ega.ega_eps_partials``, ``ops.continua.
     beta_ds_partials``, :func:`src_planck_slope`); the tangents then
     follow small linear updates of (rad, tau, tau_path[G]).  An invalid
     segment changes nothing, and its tangents do not reach the result
@@ -236,8 +240,8 @@ def rt_integrate_jvp_ref(tbl: FastDeviceTables, sr, st, nu, cc, window,
         bds, b = beta_ds_partials(flags, cc, kw, ds[:, None], p[:, None],
                                   t[:, None], q_h2o[:, None],
                                   u_co2[:, None], u_h2o[:, None])
-        factor, f_tp, f_t, f_p, f_u = ega_eps_fast_partials(tbl, tau_path,
-                                                            t, u, p)
+        factor, f_tp, f_t, f_p, f_u = ega_eps_partials(tbl, tau_path, t, u,
+                                                       p)
         # the segment's tangents [R, n] ([R, G, n] per gas, [R, D, n] k)
         dp, dt, dds = F["p"][:, s], F["t"][:, s], F["ds"][:, s]
         dq, du = F["q"][:, s], F["u"][:, s]
@@ -507,7 +511,9 @@ class ForwardModel:
     in table mode) and ``table_tbl`` the exact tables (None in pure turbo
     mode); both are set for the hybrid.  ``last_variant`` names what the
     last :meth:`formod` or :meth:`integrate` ran: ``"turbo"``,
-    ``"table"``, ``"turbo+hybrid"``, ``"exact"`` or ``"fast"``."""
+    ``"table"``, ``"turbo+hybrid"``, ``"exact kernel"`` or ``"fast
+    kernel"`` (the RT kernel, on a card), ``"exact"`` or ``"fast"`` (the
+    eager loop, on the CPU)."""
 
     def __init__(self, ctl: Ctl, tables: EgaTables | None = None,
                  directory: str = ".",
@@ -663,35 +669,47 @@ class ForwardModel:
 
     # -- sizing of ray packages (forward.py:517-626) ------------------------
 
+    def pass_mode(self) -> str:
+        """What a package's RT pass runs: ``"fused"``, ``"kernel"`` (the
+        RT kernel of an eager mode on a card) or the eager loop of
+        ``kernel_mode`` (``"fast"`` or ``"exact"``, on the CPU)."""
+        if self.kernel_mode != "fused" and self.device.type == "cuda":
+            return "kernel"
+        return self.kernel_mode
+
     def ray_terms(self, mode: str | None = None) -> dict:
         """Device bytes per ray of one package, term by term, for the
-        ``mode`` ("fused", "fast" or "exact"; default the model's
-        ``kernel_mode``).  Each term is a pair (float bytes that a
+        ``mode`` ("fused", "kernel", "fast" or "exact"; default
+        :meth:`pass_mode`).  Each term is a pair (float bytes that a
         tangent accompanies under ``jacfwd``, bytes no tangent reaches:
         integer indices, masks and table rows):
 
         * ``los``: the LOS (``LosData``);
         * ``trace``: the tracer's per-step outputs and their stacked copy;
         * ``step``: the segment stream [S, F] f32 and the kernels'
-          outputs, or the eager pass's per-step temporaries -- the
-          bracketing rows and masks, the corner-batched values (12 in the
-          model's dtype) and table values, indices and masks (12 of at
-          most 8 bytes) of the fast search [G, 4, D], and in exact mode
-          the u and eps rows of one corner, [G, D, U] in f32 and in the
-          model's dtype, with the searches' masks;
+          outputs ("fused"), the RT kernel's outputs ("kernel": an eager
+          mode on a card, whose tables are resident), or the eager loop's
+          per-step temporaries -- the bracketing rows and masks, the
+          corner-batched values (12 in the model's dtype) and table
+          values, indices and masks (12 of at most 8 bytes) of the fast
+          search [G, 4, D], and in exact mode the u and eps rows of one
+          corner, [G, D, U] in f32 and in the model's dtype, with the
+          searches' masks;
         * ``out``: the outputs and their float64 host copies;
         * ``kept``: what a package keeps to the pull, the outputs and the
           LOS where a hybrid re-run may need it.
 
         Tables are resident and not counted."""
         ctl = self.ctl
-        mode = self.kernel_mode if mode is None else mode
+        mode = self.pass_mode() if mode is None else mode
         S, G, W, D = ctl.nlos, ctl.ng, ctl.nw, ctl.nd
         b = torch.empty((), dtype=self.dtype).element_size()
         los = (S * (6 + 2 * G + W) * b, S)
         trace = (S * (2 * (8 + G + W) + 2 * G + 3) * b, 2 * S)
         if mode == "fused":
             step = (2 * S * (N_SEG + W + G) * 4 + 12 * D * 4, 0)
+        elif mode == "kernel":
+            step = (2 * D * b, 0)
         else:
             tbl = self.eager_tables().tbl
             P, T = tbl.p.shape[-1], tbl.t.shape[-1]
@@ -846,14 +864,20 @@ class ForwardModel:
     # -- integration ---------------------------------------------------------
 
     def _integrate_deferred(self, los: LosData):
-        """(RtOut, taint | None) of one package, with no host sync: the
-        eager pipeline, or the fused pass and its epilogue.  ``taint``
-        marks the lanes of a hybrid turbo pass that consumed a bad-fit
-        row (None when the tables have none)."""
+        """(RtOut, taint | None) of one package, with no host sync: the RT
+        kernel (an eager mode on a card) or the eager loop (on the CPU),
+        or the fused pass and its epilogue.  ``taint`` marks the lanes of
+        a hybrid turbo pass that consumed a bad-fit row (None when the
+        tables have none)."""
         if self.kernel_mode != "fused":
-            self.last_variant = self.kernel_mode
-            out = self.integrate_eager(los)
-            self._mark("eager pass")
+            if self.pass_mode() == "kernel":
+                out = self.integrate_kernel(los)
+                self.last_variant = f"{self.kernel_mode} kernel"
+                self._mark("kernel")
+            else:
+                self.last_variant = self.kernel_mode
+                out = self.integrate_eager(los)
+                self._mark("eager pass")
             return out, None
         args = (self.cc_rows, los, self.flags, self.ig_co2, self.ig_h2o)
         if self.turbo_tbl is None:
@@ -868,26 +892,33 @@ class ForwardModel:
         return out, taint
 
     def integrate_eager(self, los: LosData) -> RtOut:
-        """The eager pipeline on ``los`` with :meth:`eager_tables`,
-        whatever the model's kernel: the pass ``kernel_autodiff``
-        differentiates."""
+        """The eager loop :func:`rt_integrate` on ``los`` with
+        :meth:`eager_tables`, whatever the model's kernel and device: the
+        pass ``kernel_autodiff_jacfwd`` differentiates, and the RT
+        kernel's plain version (on a card, an oracle independent of the
+        kernel)."""
         e = self.eager_tables()
         return rt_integrate(e.tbl, self.sr, self.st, self.nu, e.cc, e.window,
                             los, los.tsurf, self.flags, self.ig_co2,
                             self.ig_h2o, e.use_fast, bool(self.ctl.write_bbt))
 
+    def integrate_kernel(self, los: LosData) -> RtOut:
+        """:meth:`integrate_eager`'s (rad, tau) from one launch of the RT
+        kernel (``ops.ega_rt.rt_integrate_cuda``) on CUDA tensors, which
+        raises on any other; nothing falls back to the eager loop."""
+        from .ops.ega_rt import rt_integrate_cuda
+        e = self.eager_tables()
+        return rt_integrate_cuda(e.tbl, self.sr, self.st, self.nu, e.cc,
+                                 e.window, los, self.flags, self.ig_co2,
+                                 self.ig_h2o, bool(self.ctl.write_bbt))
+
     def integrate_jvp(self, los: LosData, tan: LosTangents):
-        """(RtOut, drad [R, D, n]): the eager fast pass of
-        :meth:`integrate_eager` on ``los`` and its tangent in the
+        """(RtOut, drad [R, D, n]): the pass of :meth:`integrate_eager` on
+        ``los`` (its exact or fast tables) and its tangent in the
         directions of ``tan`` (``geometry.trace_rays_jvp``).  CPU tensors
         run the plain version :func:`rt_integrate_jvp_ref`; CUDA tensors
-        launch the RT JVP kernel (``ops.ega_jvp``) or raise.  The exact
-        tables have no tangent kernel (``retrieval.
-        kernel_autodiff_jacfwd``)."""
+        launch the RT JVP kernels (``ops.ega_jvp``) or raise."""
         e = self.eager_tables()
-        if not e.use_fast:
-            raise ValueError("KERNEL = exact: the RT tangent runs on the "
-                             "fast tables only (kernel_autodiff_jacfwd)")
         args = (e.tbl, self.sr, self.st, self.nu, e.cc, e.window, los, tan,
                 self.flags, self.ig_co2, self.ig_h2o,
                 bool(self.ctl.write_bbt))

@@ -64,15 +64,20 @@ ENTRY_POINTS = {
     "jt_trace_quo_check": [_P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "jt_trace_jvp_smem_bytes": [_I] * 5 + [_P],
     # 8 table tensors, 13 LOS and others, first, 3 scratch, rad, tau; R S
-    # G W D P T K n_src flags ig_co2 ig_h2o bbt uniform hint; 8 constants;
-    # is_double stream
-    "jt_ega_jvp_record": [_P] * 27 + [_I] * 15 + [_D] * 8 + [_I, _P],
+    # G W D P T K n_src flags ig_co2 ig_h2o bbt uniform hint exact; 8
+    # constants; is_double stream
+    "jt_ega_jvp_record": [_P] * 27 + [_I] * 16 + [_D] * 8 + [_I, _P],
     # records, segment indices, first, LOS and tsurf tangents, a_surf,
     # drad; R S G W D n is_double stream
     "jt_ega_jvp_contract": [_P] * 7 + [_I] * 7 + [_P],
     "jt_ega_jvp_scratch": [_I, _I, _P, _P],         # G W rec epi
-    # G W S uniform is_double; out: record, contraction registers
-    "jt_ega_jvp_registers": [_I] * 5 + [_P, _P],
+    # G W S uniform exact is_double; out: record, contraction registers
+    "jt_ega_jvp_registers": [_I] * 6 + [_P, _P],
+    # 8 table tensors, 13 LOS and others, rad, tau; R S G W D P T K n_src
+    # flags ig_co2 ig_h2o bbt uniform hint exact; 8 constants; is_double
+    # stream
+    "jt_ega_rt": [_P] * 23 + [_I] * 16 + [_D] * 8 + [_I, _P],
+    "jt_ega_rt_registers": [_I] * 3 + [_P],   # uniform exact is_double out
 }
 
 _lib = None

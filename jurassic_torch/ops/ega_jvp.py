@@ -39,7 +39,7 @@ from ..geometry import LosData, LosTangents
 from ..tables import LOG2_RATIO_U
 from . import ega_fused
 from .continua import ContinuaCoeffs
-from .ega import FastDeviceTables
+from .ega import EgaDeviceTables, FastDeviceTables
 
 LAUNCHES = 0           # calls of the RT tangent entry (both kernels)
 LAUNCHES_RECORD = 0    # launches of the record kernel
@@ -62,17 +62,20 @@ def scratch_lengths(G: int, W: int) -> tuple:
     return rec.value, epi.value
 
 
-def registers(G: int, W: int, S: int, uniform: bool, dtype) -> tuple:
+def registers(G: int, W: int, S: int, uniform: bool, dtype,
+              exact: bool = False) -> tuple:
     """(record kernel, contraction) registers of the instantiations that
-    a call at G gases, W windows and S segments launches in ``dtype``,
-    as the library itself chooses them (``jt_ega_jvp_registers``)."""
+    a call at G gases, W windows and S segments launches in ``dtype`` on
+    the fast (or ``exact``) tables, as the library itself chooses them
+    (``jt_ega_jvp_registers``)."""
     import ctypes
 
     from ._build import load_library
     rec, con = ctypes.c_int(), ctypes.c_int()
     rc = load_library().jt_ega_jvp_registers(
-        G, W, S, int(bool(uniform)), int(dtype == torch.float64),
-        ctypes.addressof(rec), ctypes.addressof(con))
+        G, W, S, int(bool(uniform)), int(bool(exact)),
+        int(dtype == torch.float64), ctypes.addressof(rec),
+        ctypes.addressof(con))
     if rc != 0:
         raise RuntimeError(f"jt_ega_jvp_registers failed (cudaError {rc})")
     return rec.value, con.value
@@ -123,6 +126,44 @@ def hinted_halving(row: np.ndarray, nk: int, K: int, target: float,
     return fixed_halving(row, nk, K, target), False
 
 
+def exact_row_index(row: np.ndarray, n: int, target: float,
+                    monotone: bool, hint: int) -> tuple[int, str]:
+    """(``ops.ega._count_index``'s index of ``target`` in the exact u or
+    eps ``row`` of U entries, the first ``n`` counted; how it was found),
+    as the RT kernels search it (``csrc/ega_rt_common.cuh``,
+    ``row_index``).  A row that does not decrease within its count
+    (``monotone``: ``ops.ega.rows_monotone_exact``'s bit for it, which
+    also asks n <= U) has one answer i in [0, lmax], lmax = n - 2, with
+    (i = 0 or row[i] <= target) and (i = lmax or row[i + 1] > target)
+    (:func:`hinted_halving`'s property): the kernels test i = h, h + 1
+    and h - 1 around the hint h clipped into [0, lmax] ("hint"), else
+    halve for the first entry above the target ("halving"); any other
+    row they count over its min(n, U) entries ("count").  At n < 2 the
+    index is 0 ("short")."""
+    if n < 2:
+        return 0, "short"
+    lmax = n - 2
+    if monotone:
+        c = min(max(hint, 0), lmax)
+
+        def ok(i):
+            return 0 <= i <= lmax and (i == 0 or row[i] <= target) and (
+                i == lmax or row[i + 1] > target)
+        for i in (c, c + 1, c - 1):
+            if ok(i):
+                return i, "hint"
+        lo, hi = 0, n
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if row[mid] <= target:
+                lo = mid + 1
+            else:
+                hi = mid
+        return min(max(lo - 1, 0), lmax), "halving"
+    below = int(np.sum(row[:min(n, row.shape[0])] <= target))
+    return min(max(below - 1, 0), lmax), "count"
+
+
 def shared_brackets(tbl: FastDeviceTables, p, t):
     """(ipr, it0, it1) [R, G] of the points (p, t) [R] on channel 0's
     axes: the record kernel's bracket of a (segment, gas) for every
@@ -139,11 +180,12 @@ def shared_brackets(tbl: FastDeviceTables, p, t):
 # ---------------------------------------------------------------------------
 # Plain statement of the adjoint form: records -> A -> contraction
 
-def rt_jvp_records_ref(tbl: FastDeviceTables, sr, st, nu, cc, window,
-                       los: LosData, flags, ig_co2: int, ig_h2o: int,
-                       bbt: bool):
+def rt_jvp_records_ref(tbl: EgaDeviceTables | FastDeviceTables, sr, st, nu,
+                       cc, window, los: LosData, flags, ig_co2: int,
+                       ig_h2o: int, bbt: bool):
     """(RtOut, A [R, S, F, D], a_surf [R, D]), F = 3 + 2 G + W: the eager
-    fast pass on ``los`` (``forward.rt_integrate``'s result, bit for bit)
+    pass on ``los`` with the tables' own lookups, exact or fast
+    (``forward.rt_integrate``'s result, bit for bit)
     and the sensitivities of its radiance (after the surface and
     brightness epilogue) to each segment's LOS fields (p, t, q[G], k[W],
     u[G], ds; zero on invalid segments) and to tsurf.  The forward loop
@@ -153,7 +195,7 @@ def rt_jvp_records_ref(tbl: FastDeviceTables, sr, st, nu, cc, window,
     from ..forward import (RtOut, _surface_and_bbt, src_planck,
                            src_planck_slope)
     from .continua import beta_ds_partials
-    from .ega import ega_eps_fast_partials
+    from .ega import ega_eps_partials
     dtype, dev = los.p.dtype, los.p.device
     R, S = los.ds.shape
     G, W = los.u.shape[2], los.k.shape[2]
@@ -174,7 +216,7 @@ def rt_jvp_records_ref(tbl: FastDeviceTables, sr, st, nu, cc, window,
         bds, b = beta_ds_partials(flags, cc, kw, ds[:, None], p[:, None],
                                   t[:, None], q_h2o[:, None],
                                   u_co2[:, None], u_h2o[:, None])
-        part = ega_eps_fast_partials(tbl, tau_path, t, u, p)
+        part = ega_eps_partials(tbl, tau_path, t, u, p)
         factor = part[0]
         tau_gas = factor[:, 0]
         for g in range(1, G):
@@ -251,9 +293,9 @@ def rt_jvp_contract_ref(A, a_surf, valid, tan: LosTangents):
             + a_surf[:, :, None] * tan.tsurf[:, None, :])
 
 
-def rt_jvp_adjoint_ref(tbl: FastDeviceTables, sr, st, nu, cc, window,
-                       los: LosData, tan: LosTangents, flags, ig_co2: int,
-                       ig_h2o: int, bbt: bool):
+def rt_jvp_adjoint_ref(tbl: EgaDeviceTables | FastDeviceTables, sr, st, nu,
+                       cc, window, los: LosData, tan: LosTangents, flags,
+                       ig_co2: int, ig_h2o: int, bbt: bool):
     """(RtOut, drad [R, D, n]) of ``forward.rt_integrate_jvp_ref`` on the
     same arguments by the kernels' algebra: :func:`rt_jvp_records_ref`,
     then :func:`rt_jvp_contract_ref`."""
@@ -306,48 +348,93 @@ def _launch(name: str, fn, *args):
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
 
 
-def rt_jvp_records_cuda(tbl: FastDeviceTables, sr, st, nu, cc: ContinuaCoeffs,
-                        window, los: LosData, flags, ig_co2: int,
-                        ig_h2o: int, bbt: bool):
-    """The record kernel on the card: (RtOut, records [valid, rec_len, D],
-    their segment indices [valid] int32, each ray's first record [R + 1]
-    int64, a_surf [R, D]), the records' first F values A (layout of
-    :func:`dense_adjoint`).  Checks like :func:`rt_jvp_fast_cuda` (one
-    device-to-host read of the valid count)."""
-    global LAUNCHES_RECORD
-    import ctypes
+def kernel_tables(tbl: EgaDeviceTables | FastDeviceTables, G: int, dev):
+    """(the eight table tensors, P, T, K, exact, uniform, hint, D) that
+    the RT kernels take (``jt_ega_jvp_record``, ``jt_ega_rt``), checked:
+    the fast tables (eps, log2_u0, p, t, nu, nt, np, valid; K the eps rows'
+    length) or the exact ones (u, eps, p, t, nu, nt, np, row_monotone; K
+    their rows' length U), the axes channel-innermost so that a warp's
+    per-channel loads coalesce, the integers as int32."""
+    exact = isinstance(tbl, EgaDeviceTables)
+    if exact:
+        G_t, P, T, D, K = tbl.u.shape
+        payload = (("tables u", tbl.u, torch.float32, (G_t, P, T, D, K)),
+                   ("tables eps", tbl.eps, torch.float32, (G_t, P, T, D, K)))
+    else:
+        G_t, P, T, K, D = tbl.eps.shape
+        payload = (("tables eps", tbl.eps, torch.float32, (G_t, P, T, K, D)),
+                   ("tables log2_u0", tbl.log2_u0, torch.float64,
+                    (G_t, P, T, D)))
+    if G < 1 or G_t != G:
+        raise ValueError(f"{G} gases on the LOS, {G_t} in the tables")
+    for name, x, dtype, shape in payload + (
+            ("tables p", tbl.p, torch.float64, (G, D, P)),
+            ("tables t", tbl.t, torch.float64, (G, P, D, T))):
+        ega_fused._check(name, x, dtype, shape, dev)
+    i32 = lambda x: x.to(dev, torch.int32).contiguous()
+    u8 = lambda x: x.to(dev, torch.uint8).contiguous()
+    if exact and tbl.row_monotone is None:
+        raise ValueError("the exact tables carry no row decisions "
+                         "(ops.ega.ega_tables_to_device makes them)")
+    last = u8(tbl.row_monotone if exact else tbl.valid)
+    tabs = (payload[0][1], payload[1][1], tbl.p.permute(0, 2, 1).contiguous(),
+            tbl.t.permute(0, 1, 3, 2).contiguous(), i32(tbl.nu), i32(tbl.nt),
+            i32(tbl.np_), last)
+    hint = bool(tbl.monotone) if not exact else True
+    return tabs, P, T, K, exact, bool(tbl.uniform), hint, D
 
-    from ..forward import RtOut
+
+def kernel_inputs(tbl, sr, st, nu, cc: ContinuaCoeffs, window,
+                  los: LosData):
+    """What both RT kernels take besides the outputs, checked: (device,
+    dtype, R, S, G, W, the table tuple of :func:`kernel_tables`, the
+    continua rows [16, D], window int32, sr, st, nu in the LOS's dtype)."""
     dev, dt = _check_los(los)
     R, S = los.ds.shape
     G, W = los.u.shape[2], los.k.shape[2]
-    G_t, P, T, K, D = tbl.eps.shape
-    if G < 1 or G_t != G:
-        raise ValueError(f"{G} gases on the LOS, {G_t} in the tables")
+    kt = kernel_tables(tbl, G, dev)
     chk = ega_fused._check
     for name, x, dtype, shape in (
             ("los.p", los.p, dt, (R, S)), ("los.t", los.t, dt, (R, S)),
             ("los.ds", los.ds, dt, (R, S)), ("los.q", los.q, dt, (R, S, G)),
             ("los.k", los.k, dt, (R, S, W)), ("los.u", los.u, dt, (R, S, G)),
             ("los.valid", los.valid, torch.bool, (R, S)),
-            ("los.tsurf", los.tsurf, dt, (R,)),
-            ("tables eps", tbl.eps, torch.float32, (G, P, T, K, D)),
-            ("tables log2_u0", tbl.log2_u0, torch.float64, (G, P, T, D)),
-            ("tables p", tbl.p, torch.float64, (G, D, P)),
-            ("tables t", tbl.t, torch.float64, (G, P, D, T))):
+            ("los.tsurf", los.tsurf, dt, (R,))):
         chk(name, x, dtype, shape, dev)
-    i32 = lambda x: x.to(dev, torch.int32).contiguous()
-    # the axes channel-innermost, so that a warp's per-channel loads
-    # coalesce
-    tabs = (tbl.eps, tbl.log2_u0, tbl.p.permute(0, 2, 1).contiguous(),
-            tbl.t.permute(0, 1, 3, 2).contiguous(), i32(tbl.nu), i32(tbl.nt),
-            i32(tbl.np_), tbl.valid.to(dev, torch.uint8).contiguous())
+    D = kt[-1]
     ccr = torch.stack([f.to(dev, dt) for f in cc])           # [16, D]
     sr_, st_, nu_ = (x.to(dev, dt).contiguous() for x in (sr, st, nu))
     if tuple(ccr.shape) != (len(ContinuaCoeffs._fields), D) \
             or tuple(sr_.shape) != (st_.shape[0], D) or st_.shape[0] < 2:
         raise ValueError("continua, source table or its axis do not match "
                          f"the {D} channels")
+    return (dev, dt, R, S, G, W, kt, ccr,
+            window.to(dev, torch.int32).contiguous(), sr_, st_, nu_)
+
+
+def consts():
+    """The constants both RT kernels take (NA 1000 P0, P0, C1, C2,
+    TAU_OPAQUE, TAU_CUTOFF, LOG2_RATIO_U, 2 ** LOG2_RATIO_U)."""
+    return (NA * 1000.0 * P0, P0, C1, C2, TAU_OPAQUE, TAU_CUTOFF,
+            LOG2_RATIO_U, 2.0 ** LOG2_RATIO_U)
+
+
+def rt_jvp_records_cuda(tbl: EgaDeviceTables | FastDeviceTables, sr, st, nu,
+                        cc: ContinuaCoeffs, window, los: LosData, flags,
+                        ig_co2: int, ig_h2o: int, bbt: bool):
+    """The record kernel on the card: (RtOut, records [valid, rec_len, D],
+    their segment indices [valid] int32, each ray's first record [R + 1]
+    int64, a_surf [R, D]), the records' first F values A (layout of
+    :func:`dense_adjoint`), on the fast or the exact tables.  Checks like
+    :func:`rt_jvp_fast_cuda` (one device-to-host read of the valid
+    count)."""
+    global LAUNCHES_RECORD
+    import ctypes
+
+    from ..forward import RtOut
+    (dev, dt, R, S, G, W, kt, ccr, win, sr_, st_, nu_) = kernel_inputs(
+        tbl, sr, st, nu, cc, window, los)
+    tabs, P, T, K, exact, uniform, hint, D = kt
     out = RtOut(rad=torch.empty((R, D), dtype=dt, device=dev),
                 tau=torch.empty((R, D), dtype=dt, device=dev))
     # a record per valid segment and channel, each ray's from its first
@@ -365,15 +452,14 @@ def rt_jvp_records_cuda(tbl: FastDeviceTables, sr, st, nu, cc: ContinuaCoeffs,
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
         _launch("jt_ega_jvp_record", _library().jt_ega_jvp_record,
-                *(ptr(x) for x in (*tabs, ccr, i32(window), sr_, st_, nu_,
+                *(ptr(x) for x in (*tabs, ccr, win, sr_, st_, nu_,
                                    los.p, los.t, los.ds, los.q, los.k,
                                    los.u, los.valid, los.tsurf, first, rec,
                                    sidx, asurf, out.rad, out.tau)),
                 R, S, G, W, D, P, T, K, st_.shape[0], bits, int(ig_co2),
-                int(ig_h2o), int(bool(bbt)), int(bool(tbl.uniform)),
-                int(bool(tbl.monotone)), NA * 1000.0 * P0, P0, C1, C2,
-                TAU_OPAQUE, TAU_CUTOFF, LOG2_RATIO_U, 2.0 ** LOG2_RATIO_U,
-                int(dt == torch.float64), _stream(dev))
+                int(ig_h2o), int(bool(bbt)), int(uniform), int(hint),
+                int(exact), *consts(), int(dt == torch.float64),
+                _stream(dev))
     LAUNCHES_RECORD += 1
     return out, rec, sidx, first, asurf
 
@@ -419,20 +505,21 @@ def rt_jvp_contract_cuda(rec, sidx, first, asurf, tan: LosTangents, G: int,
 def _check_los(los: LosData):
     dev, dt = los.p.device, los.p.dtype
     if dev.type != "cuda":
-        raise ValueError(f"the RT tangent kernels run on CUDA tensors, got "
-                         f"{dev}")
+        raise ValueError(f"the RT kernels run on CUDA tensors, got {dev}")
     if dt not in (torch.float32, torch.float64):
-        raise ValueError(f"the RT tangent kernels take float32 or float64, "
-                         f"got {dt}")
+        raise ValueError(f"the RT kernels take float32 or float64, got "
+                         f"{dt}")
     return dev, dt
 
 
-def rt_jvp_fast_cuda(tbl: FastDeviceTables, sr, st, nu, cc: ContinuaCoeffs,
-                     window, los: LosData, tan: LosTangents, flags,
-                     ig_co2: int, ig_h2o: int, bbt: bool):
+def rt_jvp_fast_cuda(tbl: EgaDeviceTables | FastDeviceTables, sr, st, nu,
+                     cc: ContinuaCoeffs, window, los: LosData,
+                     tan: LosTangents, flags, ig_co2: int, ig_h2o: int,
+                     bbt: bool):
     """(RtOut, drad [R, D, n]) of ``forward.rt_integrate_jvp_ref`` on the
     same arguments, by the record kernel and the contraction kernel on the
-    card in the dtype of ``los``; the records take ``scratch_lengths(G,
+    card in the dtype of ``los``, on the fast tables or (the record
+    kernel's exact instantiation) the exact ones; the records take ``scratch_lengths(G,
     W)`` values and one int32 per valid segment and channel of scratch
     (one device-to-host read of the valid count).  Raises on tensors off
     the card or of another dtype or shape than the LOS's, on tangents

@@ -12,10 +12,10 @@
 * :func:`kernel_autodiff`: the forward-mode Jacobian, chained by hand --
   ``torch.func.jacfwd`` of the state map (scatter and in-graph
   hydrostatic rebuild) on the atm axis, then the tracer's and the eager
-  fast RT pass's tangents (two CUDA kernels on a card, their plain
-  versions on the CPU), ray package by ray package;
-  :func:`kernel_autodiff_jacfwd`: ``torch.func.jacfwd`` through the
-  whole eager pipeline (``KERNEL = exact``, and the oracle).
+  RT pass's tangents on the model's exact or fast tables (CUDA kernels
+  on a card, their plain versions on the CPU), ray package by ray
+  package; :func:`kernel_autodiff_jacfwd`: ``torch.func.jacfwd``
+  through the whole eager pipeline (the oracle).
 
 The seam: ``kernel_autodiff`` differentiates the eager pipeline
 (``forward.rt_integrate``) whatever kernel the model's forward runs, as
@@ -172,7 +172,8 @@ def autodiff_ray_bytes(model: "ForwardModel", n: int,
     """Device bytes per ray of one ``kernel_autodiff`` package for an
     n-element state.
 
-    On fast tables (the tangent kernels' path, or their plain versions):
+    On the tangent route (the tangent kernels, or their plain versions;
+    the exact and the fast tables alike):
     the LOS (``ForwardModel.ray_terms``' ``los``), its tangents
     [NLOS, 3 + 2 G + W, n] and tsurf's [n] in the model's dtype, the
     tracer tangent kernels' records (``ops.trace_jvp.record_lengths``, the
@@ -187,14 +188,14 @@ def autodiff_ray_bytes(model: "ForwardModel", n: int,
     are per atm point [N, 2 + G + W, n], made once per Jacobian before
     the free memory is read, and not counted here.
 
-    On exact tables, or with ``jacfwd`` (:func:`kernel_autodiff_jacfwd`):
-    the eager pass's in-flight bytes per ray (``ray_terms`` in its mode),
+    With ``jacfwd`` (:func:`kernel_autodiff_jacfwd`): the eager pass's
+    in-flight bytes per ray (``ray_terms`` in its eager mode),
     where the float tensors that carry tangents count 1 + n times, a
     primal and n tangents, and the integer indices, masks and table rows,
     which no tangent reaches, once."""
-    use_fast = model.eager_tables().use_fast
-    if jacfwd or not use_fast:
-        t = model.ray_terms("fast" if use_fast else "exact")
+    if jacfwd:
+        t = model.ray_terms("fast" if model.eager_tables().use_fast
+                            else "exact")
 
         def bytes_(*terms):
             return sum(t[k][0] * (1 + n) + t[k][1] for k in terms)
@@ -325,17 +326,16 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
     2. The tracer and its tangents (``geometry.trace_rays_jvp``: the
        record and tangent kernels of ``csrc/trace_rays_jvp.cu`` on a
        card, their plain version on the CPU).
-    3. The eager fast-table RT pass and its tangent
-       (``ForwardModel.integrate_jvp``: the kernel ``csrc/
-       ega_jvp_fast.cu`` on a card, ``forward.rt_integrate_jvp_ref`` on
-       the CPU).
+    3. The eager RT pass on the model's exact or fast tables and its
+       tangent (``ForwardModel.integrate_jvp``: the kernels of ``csrc/
+       ega_jvp_fast.cu`` on a card, their record kernel's exact or fast
+       instantiation; ``forward.rt_integrate_jvp_ref`` on the CPU).
 
-    The seam: it differentiates the eager fast pipeline whatever kernel
-    the model's forward runs, as the JAX package does (retrieval.py:
-    178-191 there).  A ``KERNEL = exact`` model's tables are not the fast
-    ones and have no tangent kernel: it runs
-    :func:`kernel_autodiff_jacfwd` on every device.  Masked radiances
-    give zero rows; the finite rows are returned as float64.
+    The seam: it differentiates the eager pipeline whatever kernel the
+    model's forward runs, as the JAX package does (retrieval.py:178-191
+    there): a ``KERNEL = exact`` model's exact lookups, every other
+    model's fast ones.  Masked radiances give zero rows; the finite rows
+    are returned as float64.
 
     A ray's rows depend only on its own profile and geometry, so the
     Jacobian runs ray package by ray package (:func:`autodiff_package_
@@ -349,8 +349,6 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
 
     if model is None:
         model = ForwardModel(ctl)
-    if not model.eager_tables().use_fast:
-        return kernel_autodiff_jacfwd(ctl, atm, obs, model)
     mask = ~np.isfinite(obs.rad)
     seed = autodiff_seed(ctl, atm, model)
     n = seed.map.x0.size
@@ -422,8 +420,8 @@ def kernel_autodiff_jacfwd(ctl: Ctl, atm: Atm, obs: Obs,
     eager pipeline: the plain tracer ``geometry.trace_rays_ref`` and the
     model's eager pass (:meth:`~jurassic_torch.forward.ForwardModel.
     integrate_eager`, its fast or exact tables) after the same state map,
-    package by package.  The route of ``KERNEL = exact`` models, and the
-    oracle the tangent chain is held to (in the tests and on the card).
+    package by package: the oracle the tangent chain is held to (in the
+    tests and on the card).
     It runs one host dispatch per operation and tangent batch: the
     tangents multiply the eager pass's float memory by up to 1 + n."""
     import torch

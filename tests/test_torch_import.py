@@ -32,7 +32,8 @@ def test_port_import_leaves_jax_out():
             "jurassic_torch.parallel.sharded",
             "jurassic_torch.parallel.dryrun",
             "jurassic_torch.ops.trace_jvp",
-            "jurassic_torch.ops.ega_jvp"} <= set(mods)
+            "jurassic_torch.ops.ega_jvp", "jurassic_torch.ops.ega_rt",
+            "jurassic_torch.tools.ulp_probe"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -99,7 +100,12 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     cuh = src / "cp_async.cuh"
     assert cuh in _build.sources()
     cuh.write_text(cuh.read_text() + "\n// edited\n")
-    assert _build.library_path() not in (name0, name1, name2, name3)
+    name4 = _build.library_path()
+    assert name4 not in (name0, name1, name2, name3)
+    cuh = src / "ega_rt_common.cuh"
+    assert cuh in _build.sources()
+    cuh.write_text(cuh.read_text() + "\n// edited\n")
+    assert _build.library_path() not in (name0, name1, name2, name3, name4)
     assert _build.build_log() == ""
     # every entry point has its argument types in one table
     assert set(_build.ENTRY_POINTS) == {
@@ -111,4 +117,4 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
         "jt_trace_jvp_registers", "jt_trace_jvp_smem_bytes",
         "jt_trace_quo_check",
         "jt_ega_jvp_record", "jt_ega_jvp_contract", "jt_ega_jvp_scratch",
-        "jt_ega_jvp_registers"}
+        "jt_ega_jvp_registers", "jt_ega_rt", "jt_ega_rt_registers"}

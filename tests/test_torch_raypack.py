@@ -85,14 +85,15 @@ def test_raypack_auto_sizing(kernel, monkeypatch, capsys):
     package keeps until the pull fit 90 % of the free memory (the
     allocator's cached, unused 2 MiB count as free); the figure is read
     on every call, and the sizing line names bytes per ray, free GB and
-    rays per package."""
+    rays per package.  The figure is the card's route's (for ``jax``, the
+    RT kernel's)."""
     m, _a, _o = _model(kernel)
+    m.device = torch.device("cuda", 0)
     flight, kept = m._ray_bytes()
     assert m.per_ray_device_bytes() == flight + kept > 0
     # every package keeps its outputs (4 x [D] f32 per ray), the hybrid
     # its LOS as well, for a re-run
     assert (kept > 4 * 8 * 4) == (kernel == "hybrid")
-    m.device = torch.device("cuda", 0)
     nr = 1000
     free = nr * kept + 2 * 100 * flight + flight // 2
     card = _FakeCard(monkeypatch, int(free / 0.9) - (2 << 20) + 1)
