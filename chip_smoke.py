@@ -2253,6 +2253,14 @@ def retrieval_phase(torch, ega_fused, ForwardModel, flagship, small_limb,
             fd_launches["auto"][2]), rec
 
 
+def busiest_ray(torch, los):
+    """The LOS of its ray with the most valid segments alone: the RT
+    kernels' floor, the chain one lane runs."""
+    idx = torch.argmax(los.valid.sum(dim=1)).reshape(1)
+    return los._replace(**{f: getattr(los, f)[idx].contiguous()
+                           for f in los._fields})
+
+
 def rt_bound(torch, m, los, exact: bool) -> tuple:
     """(bound_ms, bound_by, bytes, operations) of one RT kernel pass on
     ``los``: the LOS fields it reads, the tables, the continua and source
@@ -2266,7 +2274,7 @@ def rt_bound(torch, m, los, exact: bool) -> tuple:
     n_active = int(los.valid.sum())
     nb = lambda *xs: sum(x.numel() * x.element_size() for x in xs)
     if exact:
-        U = tbl.u.shape[-1]
+        U = tbl.u.shape[3]
         tables = nb(tbl.u, tbl.eps, tbl.p, tbl.t) + tbl.row_monotone.numel()
         corner = OPS_RT_EXACT_CORNER + 2 * math.ceil(math.log2(U))
     else:
@@ -2366,6 +2374,12 @@ def rt_kernel_phase(torch, ForwardModel, flagship, dev, jax64: dict) -> dict:
         worst = max(worst, d_rad, d_tau)
         ms = kernel_ms(torch, lambda: m.integrate(los), "jt_ega_rt",
                        N_KERNEL_RUNS)
+        R, G = los.ds.shape[0], los.u.shape[2]
+        shape = ega_rt.launch_shape(R, m.ctl.nd, G, e.tbl.uniform, exact,
+                                    dtype)
+        los1 = busiest_ray(torch, los)
+        floor_ms = kernel_ms(torch, lambda: m.integrate(los1), "jt_ega_rt",
+                             N_KERNEL_RUNS)
         regs = ega_rt.registers(e.tbl.uniform, exact, dtype)
         b_ms, b_by, nb, ops = rt_bound(torch, m, los, exact)
         _, wall, n_f, busy_f = profiled_call(
@@ -2376,6 +2390,10 @@ def rt_kernel_phase(torch, ForwardModel, flagship, dev, jax64: dict) -> dict:
         r = {"launches": launches[0], "ms": ms, "plain_ms": ms_e,
              "plain_device_launches": n_e,
              "bound_ms": b_ms, "bound_by": b_by, "registers": regs,
+             "floor_ms": floor_ms,
+             "blocks_per_sm": shape["blocks_per_sm"],
+             "rounds": shape["rounds"], "groups": shape["groups"],
+             "blocks": shape["blocks"],
              "lanes_not_bit_for_bit": off, "formod_launches": n_f,
              "formod_idle_share": idle}
         if kernel == "jax":
@@ -2391,7 +2409,13 @@ def rt_kernel_phase(torch, ForwardModel, flagship, dev, jax64: dict) -> dict:
             del fm_p
         print(f"RT kernel, {label}: {ms:.3f} ms (median of "
               f"{N_KERNEL_RUNS}, CUDA events around each launch), "
-              f"{regs} registers; bound {b_ms:.4f} ms by {b_by} "
+              f"{regs} registers, {shape['blocks_per_sm']} resident "
+              f"blocks an SM ({shape['slots']} slots), a block for each of "
+              f"{shape['groups']} groups of {shape['rays_per_block']} rays: "
+              f"{shape['rounds']} round(s), "
+              f"{shape['groups_per_slot']:.2f} groups a slot; floor (the "
+              f"busiest ray alone) "
+              f"{floor_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
               f"({nb / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); the eager loop "
               f"{ms_e:.1f} ms, {n_e} device launches (busy {busy_e:.1f} "
               f"ms); a profiled formod {wall * 1e3:.1f} ms, {n_f} device "
@@ -2410,6 +2434,7 @@ def rt_kernel_phase(torch, ForwardModel, flagship, dev, jax64: dict) -> dict:
             "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
+            "floor_ms": main["floor_ms"], "rounds": main["rounds"],
             "configurations": rec}
 
 
@@ -2497,7 +2522,7 @@ def exact_jacobian_phase(torch, ForwardModel, flagship, dev) -> dict:
         b = los.p.element_size()
         n_active = int(los.valid.sum())
         F = 3 + 2 * G + W
-        U = e.tbl.u.shape[-1]
+        U = e.tbl.u.shape[3]
         r_bytes = (sum(x.numel() * x.element_size() for x in (
             los.p, los.t, los.ds, los.q, los.k, los.u, los.valid, los.tsurf,
             e.tbl.u, e.tbl.eps, e.tbl.p, e.tbl.t))
@@ -2512,19 +2537,32 @@ def exact_jacobian_phase(torch, ForwardModel, flagship, dev) -> dict:
         t_b, t_o = r_bytes / PEAK_HBM_BYTES, r_ops / peak
         reg_rec, reg_con = ej.registers(G, W, S, e.tbl.uniform, dtype,
                                         exact=True)
+        from jurassic_torch.ops.ega_rt import launch_shape
+        shape = launch_shape(R, D, G, e.tbl.uniform, True, dtype,
+                             record=True)
+        rargs1 = rargs[:6] + (busiest_ray(torch, los),) + rargs[8:]
+        floor_ms = kernel_ms_each(torch, lambda: ej.rt_jvp_records_cuda(
+            *rargs1), ("jt_ega_jvp_record",), 5)["jt_ega_jvp_record"]
         timing[key] = {"ms": ms["jt_ega_jvp_record"],
                        "contract_ms": ms["jt_ega_jvp_contract"],
                        "bound_ms": max(t_b, t_o) * 1e3,
                        "bound_by": "bytes" if t_b >= t_o else "operations",
-                       "registers": reg_rec}
+                       "registers": reg_rec, "floor_ms": floor_ms,
+                       "blocks_per_sm": shape["blocks_per_sm"],
+                       "rounds": shape["rounds"], "groups": shape["groups"],
+                       "blocks": shape["blocks"]}
         print(f"ega_jvp_record (exact) at the flagship ({R} rays, "
               f"{n_active} valid segments, n = {n}, {key}): "
               f"{ms['jt_ega_jvp_record']:.3f} ms, the contraction on its "
               f"records {ms['jt_ega_jvp_contract']:.3f} ms (medians of 5); "
               f"bound {max(t_b, t_o) * 1e3:.3f} ms by "
               f"{timing[key]['bound_by']} ({r_bytes / 1e9:.2f} GB, "
-              f"{r_ops / 1e9:.1f} GFLOP); registers {reg_rec} / {reg_con}",
-              flush=True)
+              f"{r_ops / 1e9:.1f} GFLOP); registers {reg_rec} / {reg_con}; "
+              f"{shape['blocks_per_sm']} resident record blocks an SM, "
+              f"a block for each of {shape['groups']} groups: "
+              f"{shape['rounds']} round(s), {shape['groups_per_slot']:.2f} "
+              f"groups a slot; floor (the busiest ray alone) "
+              f"{floor_ms:.3f} ms", flush=True)
         del m, los, tan, rargs, e
         torch.cuda.empty_cache()
     K64, nr, npk, counts64, wall64 = autodiff_run(
@@ -2576,6 +2614,8 @@ def exact_jacobian_phase(torch, ForwardModel, flagship, dev) -> dict:
             "ms": t64["ms"], "plain_ms": plain.get("record"),
             "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
             "library_ms": None, "registers": t64["registers"],
+            "floor_ms": t64["floor_ms"], "rounds": t64["rounds"],
+            "blocks_per_sm": t64["blocks_per_sm"],
             "contract_ms": t64["contract_ms"],
             "entry_plain_ms": plain.get("rt"),
             "float32": timing["float32"],

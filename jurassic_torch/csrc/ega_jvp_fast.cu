@@ -70,7 +70,11 @@
 //
 // The step's device code (brackets, the fast and the exact corners, a
 // gas's factor and partials, continua, source, epilogue) is
-// ega_rt_common.cuh's, which the primal RT kernel (ega_rt.cu) shares.
+// ega_rt_common.cuh's, which the primal RT kernel (ega_rt.cu) shares, and
+// so is the launch (rt_shape): a block a group of adjacent rays.  On the
+// exact tables the corners' first trips are in flight together, from
+// windows of the channel-innermost rows, at two blocks an SM (MinBlocks);
+// on the fast tables three.
 //
 // Numbers: the primal repeats the plain version's operations in its order
 // (-fmad=false, libdevice's transcendentals; ega_rt_common.cuh states the
@@ -95,12 +99,6 @@ namespace {
 using namespace jt_cp;
 using namespace jt_rt;
 
-constexpr int REC_THREADS = 256;  // most (ray, channel) lanes of a block
-constexpr int REC_BLOCKS = 3;     // record blocks an SM holds (80 registers)
-constexpr int NR_MAX = 8;         // most rays of a record block
-constexpr int CH_MAX = 64;        // segments bracketed ahead per chunk
-constexpr int BR_BYTES = 16384;   // shared memory of a chunk's brackets
-constexpr int REC_SMEM_MAX = 200 * 1024;
 // The contraction's ring; tools/jvp_split.py builds variants with
 // -DJT_CT_STAGES, -DJT_CT_SMEM (bytes) and -DJT_CT_KS_MAX
 #ifndef JT_CT_STAGES
@@ -131,8 +129,13 @@ __host__ __device__ __forceinline__ int rec_len(int G, int W) {
   return a > f ? a : f;
 }
 
+// the resident blocks an SM that the record kernel asks (ega_rt_common.cuh)
+template <class TB>
+using RecBlocks = MinBlocks<TB, true>;
+
 template <typename T, bool UNI, class TB>
-__global__ void __launch_bounds__(REC_THREADS, REC_BLOCKS) ega_rec_kernel(
+__global__ void __launch_bounds__(RT_THREADS, RecBlocks<TB>::value)
+    ega_rec_kernel(
     TB tb, const T* __restrict__ cc, const int* __restrict__ window,
     const T* __restrict__ sr, const T* __restrict__ st,
     const T* __restrict__ nu_ch, const T* __restrict__ lp,
@@ -200,11 +203,16 @@ __global__ void __launch_bounds__(REC_THREADS, REC_BLOCKS) ega_rec_kernel(
           }
           s_br[task] = b;
         }
+#ifdef JT_SPLIT_NOBAR
+        __syncthreads();  // tools/rt_split.py: the brackets, no more
+#endif
       }
       for (int sl = 0; sl < ns; ++sl) {
         // one barrier per segment: the warps of the block's rays stay at
         // the same segment, where neighbouring rays read the same cells
+#ifndef JT_SPLIT_NOBAR
         __syncthreads();
+#endif
         const int s = s0 + sl;
         if (!live || s >= s_nb[rl]) continue;
         const size_t rs = (size_t)r * S + s;
@@ -640,49 +648,56 @@ auto rec_kernel(bool uni) {
   return uni ? ega_rec_kernel<T, true, TB> : ega_rec_kernel<T, false, TB>;
 }
 
+template <typename T>
+auto rec_smem_of(int G, bool uni) {
+  return [=](int bd, int NR, int CH) {
+    return rec_smem<T>(bd, NR, CH, G, uni);
+  };
+}
+
 template <typename T, class TB>
 int launch_rec(const TB& tb, const void* const* p, int R, int S, int G,
                int W, int n_src, int flags, int ig_co2, int ig_h2o, int bbt,
                int uniform, int hint, const Consts& cs, cudaStream_t stream) {
-  const int D = tb.ax.D;
-  int dev = 0, n_sm = 1;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return (int)cudaGetLastError();
-  // NR adjacent rays a block, at least one block a multiprocessor
-  int NR = REC_THREADS / D;
-  NR = NR < R / (n_sm > 0 ? n_sm : 1) ? NR : R / (n_sm > 0 ? n_sm : 1);
-  NR = NR < 1 ? 1 : (NR > NR_MAX ? NR_MAX : NR);
-  int bd = ((NR * D + 31) / 32) * 32;
-  bd = bd < REC_THREADS ? bd : REC_THREADS;
-  int CH = BR_BYTES / (int)(sizeof(Bracket) * NR * G);
-  CH = CH < 1 ? 1 : (CH > CH_MAX ? CH_MAX : CH);
   const bool uni = uniform != 0;
-  while (bd > 32 && rec_smem<T>(bd, NR, CH, G, uni) > REC_SMEM_MAX) bd -= 32;
-  const size_t smem = rec_smem<T>(bd, NR, CH, G, uni);
-  if (smem > REC_SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kernel = rec_kernel<T, TB>(uni);
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(R + NR - 1) / NR, bd, smem, stream>>>(
+  RtShape sh;
+  if (const int e = rt_shape(kernel, rec_smem_of<T>(G, uni), R, tb.ax.D, G,
+                             sh))
+    return e;
+  kernel<<<sh.groups, sh.bd, sh.smem, stream>>>(
       tb, (const T*)p[0], (const int*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const T*)p[8], (const T*)p[9], (const T*)p[10], (const uint8_t*)p[11],
       (const T*)p[12], (const long long*)p[13], (T*)p[14], (int*)p[15],
       (T*)p[16], (T*)p[17], (T*)p[18], R, S, G, W, n_src, flags, ig_co2,
-      ig_h2o, bbt, hint, NR, CH, cs);
+      ig_h2o, bbt, hint, sh.NR, sh.CH, cs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The record kernel's launch shape (jt_ega_rt_shape with ``record``)
+int jt_rt::rec_shape_out(int R, int D, int G, bool uni, bool exact,
+                         bool dbl, int* out) {
+  auto shape = [&](auto kernel, auto smem) {
+    return rt_shape_out(kernel, smem, R, D, G, out);
+  };
+  return dbl ? (exact ? shape(rec_kernel<double, ExactTab>(uni),
+                              rec_smem_of<double>(G, uni))
+                      : shape(rec_kernel<double, FastTab>(uni),
+                              rec_smem_of<double>(G, uni)))
+             : (exact ? shape(rec_kernel<float, ExactTab>(uni),
+                              rec_smem_of<float>(G, uni))
+                      : shape(rec_kernel<float, FastTab>(uni),
+                              rec_smem_of<float>(G, uni)));
+}
+
 // The record kernel.  Pointers: the tables (tp[0..7]), the fast ones eps
 // [G, P, T, K, D] f32, log2_u0 [G, P, T, D] f64, the p axis [G, P, D] f64
 // and the t axis [G, P, T, D] f64 (channels innermost), nu [G, P, T, D],
 // nt [G, P, D], np [G, D] int32 and valid [G, P, T, D] bytes, or with
-// ``exact`` the exact ones u and eps [G, P, T, D, U] f32 (K = U), the
+// ``exact`` the exact ones u and eps [G, P, T, U, D] f32 (K = U), the
 // axes and counts the same, and row_monotone [G, P, T, D] bytes
 // (EgaDeviceTables.row_monotone) in valid's place; then the continua rows
 // [16, D] (ContinuaCoeffs' order), the window map [D] int32, the source

@@ -12,27 +12,33 @@
 // without its records and its sweep: a block owns NR adjacent rays x all
 // channels, a thread a (ray, channel) lane carrying rad, tau and
 // tau_path[G] (in shared memory, G is a run-time count) over the ray's
-// segments, which end after its last valid one (an invalid segment changes
-// nothing in the plain version either).  On tables whose (p, T) axes are
-// bitwise the same in every channel the block brackets each (segment, gas)
-// once, a chunk of segments ahead, into shared memory, with channel 0's
-// count searches; otherwise every lane brackets on a channel-innermost
-// copy of the axes.  The segment's step is ega_rt_common.cuh's, the
-// record kernel's: the fast corners (a hinted halving of the eps row, u
-// from log2 arithmetic) or the exact corners (a hinted halving of each
-// monotone u and eps row, a count over the others), a gas's factor, the
-// continua, the source.
+// segments, which end after its last valid one (an invalid segment
+// changes nothing in the plain version either).  On tables whose (p, T) axes are
+// bitwise the same in every channel the block brackets each (segment,
+// gas) once, a chunk of segments ahead, into shared memory, with channel
+// 0's count searches; otherwise every lane brackets on a
+// channel-innermost copy of the axes.  The segment's step is
+// ega_rt_common.cuh's, the record kernel's: the fast corners (a hinted
+// halving of the eps row, u from log2 arithmetic) or the exact corners
+// (the first trips of a gas's four corners issued together from windows
+// of the channel-innermost rows around each corner's hint, then a hinted
+// check in them; a halving where a check fails, a count on a row that
+// decreases), a gas's factor, the continua, the source.
 //
 // What bounds it (PERF.md, the H100): per valid (segment, channel) 4 G
 // corners of searches and a few dozen operations each, the continua and
 // the recursion, 2.4e10 operations at the flagship (0.71 ms in float64 at
 // the published rate); the bytes are the LOS, the outputs and the tables
-// (0.9 GB with the exact tables' u and eps rows), read once 0.27 ms.  At
-// the flagship on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): exact
-// 22.49 / 24.38 ms (float64 / float32), fast 14.96 / 9.36 ms, 20-70x the
-// bound.  Like the record kernel's, the latency of the corners' dependent
-// loads holds it, not a rate; on the exact tables each lane reads its own
-// rows, which do not coalesce across a warp.
+// (0.9 GB with the exact tables' u and eps rows), read once 0.27 ms.
+// What held the first form (tools/rt_split.py on an NVIDIA H100
+// 80GB HBM3 at 700 W): the chain of one lane, not a rate -- the busiest
+// ray alone took 12.45 ms of the 22.34 ms exact float64 launch, its
+// segment 16 corners of five dependent trips of loads that did not
+// coalesce.  The windows cut that chain and the channel-innermost rows
+// let a warp share the lines; the registers they ask cap the blocks an
+// SM at two on the exact tables (MinBlocks).  The fast corners, three
+// coalesced trips, and the fast instantiations stay as they were:
+// windows only cost them registers.
 //
 // Numbers: the step repeats the plain version's operations in its order
 // (-fmad=false, libdevice's transcendentals; ega_rt_common.cuh says where
@@ -50,24 +56,26 @@ namespace {
 
 using namespace jt_rt;
 
-constexpr int RT_THREADS = 256;  // most (ray, channel) lanes of a block
-constexpr int NR_MAX = 8;        // most rays of a block
-constexpr int CH_MAX = 64;       // segments bracketed ahead per chunk
-constexpr int BR_BYTES = 16384;  // shared memory of a chunk's brackets
-constexpr int RT_SMEM_MAX = 200 * 1024;
+// The kernel's arguments after the tables
+#define JT_RT_PARAMS                                                      \
+  const T *__restrict__ cc, const int *__restrict__ window,              \
+      const T *__restrict__ sr, const T *__restrict__ st,                \
+      const T *__restrict__ nu_ch, const T *__restrict__ lp,             \
+      const T *__restrict__ lt, const T *__restrict__ lds,               \
+      const T *__restrict__ lq, const T *__restrict__ lk,                \
+      const T *__restrict__ lu, const uint8_t *__restrict__ lvalid,      \
+      const T *__restrict__ ltsurf, T *__restrict__ rad_out,             \
+      T *__restrict__ tau_out, int R, int S, int G, int W, int n_src,    \
+      int flags, int ig_co2, int ig_h2o, int bbt, int hint, int NR,      \
+      int CH, Consts cs
+#define JT_RT_ARGS                                                        \
+  cc, window, sr, st, nu_ch, lp, lt, lds, lq, lk, lu, lvalid, ltsurf,    \
+      rad_out, tau_out, R, S, G, W, n_src, flags, ig_co2, ig_h2o, bbt,   \
+      hint, NR, CH, cs
 
+// A block's work: its group of rays x all channels
 template <typename T, bool UNI, class TB>
-__global__ void __launch_bounds__(RT_THREADS) ega_rt_kernel(
-    TB tb, const T* __restrict__ cc, const int* __restrict__ window,
-    const T* __restrict__ sr, const T* __restrict__ st,
-    const T* __restrict__ nu_ch, const T* __restrict__ lp,
-    const T* __restrict__ lt, const T* __restrict__ lds,
-    const T* __restrict__ lq, const T* __restrict__ lk,
-    const T* __restrict__ lu, const uint8_t* __restrict__ lvalid,
-    const T* __restrict__ ltsurf, T* __restrict__ rad_out,
-    T* __restrict__ tau_out, int R, int S, int G, int W, int n_src,
-    int flags, int ig_co2, int ig_h2o, int bbt, int hint, int NR, int CH,
-    Consts cs) {
+__device__ __forceinline__ void rt_block(TB tb, JT_RT_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = tb.ax.D;
   const int bd = blockDim.x, tid = threadIdx.x;
@@ -117,10 +125,15 @@ __global__ void __launch_bounds__(RT_THREADS) ega_rt_kernel(
           }
           s_br[task] = b;
         }
+#ifdef JT_SPLIT_NOBAR
+        __syncthreads();  // tools/rt_split.py: the brackets, no more
+#endif
       }
       for (int sl = 0; sl < ns; ++sl) {
         // one barrier per segment: the block's rays stay at one segment
+#ifndef JT_SPLIT_NOBAR
         __syncthreads();
+#endif
         const int s = s0 + sl;
         if (!live || s >= s_nb[rl]) continue;
         const size_t rs = (size_t)r * S + s;
@@ -166,6 +179,29 @@ __global__ void __launch_bounds__(RT_THREADS) ega_rt_kernel(
   }
 }
 
+// The kernels, one a table kind for their launch bounds: the exact one
+// at two blocks an SM (MinBlocks, 128 registers), the fast one asking no
+// number of blocks, so that the compiler picks its registers (80 / 120 in
+// float32 / float64) as before the exact corners' redesign: a bound of
+// one block took 108-128 registers and lost up to a fifth of its time on
+// per-channel axes (tools/rt_split.py, which builds variants with
+// -DJT_RT_BLOCKS)
+constexpr int RT_EXACT_BLOCKS = MinBlocks<ExactTab, false>::value;
+template <typename T, bool UNI>
+__global__ void __launch_bounds__(RT_THREADS, RT_EXACT_BLOCKS)
+    ega_rt_kernel_exact(ExactTab tb, JT_RT_PARAMS) {
+  rt_block<T, UNI>(tb, JT_RT_ARGS);
+}
+template <typename T, bool UNI>
+#if JT_RT_BLOCKS > 0
+__global__ void __launch_bounds__(RT_THREADS, JT_RT_BLOCKS)
+#else
+__global__ void __launch_bounds__(RT_THREADS)
+#endif
+    ega_rt_kernel_fast(FastTab tb, JT_RT_PARAMS) {
+  rt_block<T, UNI>(tb, JT_RT_ARGS);
+}
+
 // Shared memory of a block of bd threads (brackets of CH segments of NR
 // rays when UNI)
 template <typename T>
@@ -174,9 +210,26 @@ size_t rt_smem(int bd, int NR, int CH, int G, bool uni) {
          sizeof(T) * (size_t)G * bd + sizeof(int) * (4 * (size_t)G * bd + NR);
 }
 
+template <typename T>
+auto rt_kernel_of(const ExactTab*, bool uni) {
+  return uni ? ega_rt_kernel_exact<T, true> : ega_rt_kernel_exact<T, false>;
+}
+template <typename T>
+auto rt_kernel_of(const FastTab*, bool uni) {
+  return uni ? ega_rt_kernel_fast<T, true> : ega_rt_kernel_fast<T, false>;
+}
+// The kernel of a call: by table kind, then shared brackets where the
+// axes are the same in every channel
 template <typename T, class TB>
 auto rt_kernel(bool uni) {
-  return uni ? ega_rt_kernel<T, true, TB> : ega_rt_kernel<T, false, TB>;
+  return rt_kernel_of<T>((const TB*)nullptr, uni);
+}
+
+template <typename T>
+auto rt_smem_of(int G, bool uni) {
+  return [=](int bd, int NR, int CH) {
+    return rt_smem<T>(bd, NR, CH, G, uni);
+  };
 }
 
 template <typename T, class TB>
@@ -186,33 +239,17 @@ int launch_rt(const TB& tb, const void* const* p, const int* a,
   const int flags = a[5], ig_co2 = a[6], ig_h2o = a[7], bbt = a[8];
   const bool uni = a[9] != 0;
   const int hint = a[10];
-  const int D = tb.ax.D;
-  int dev = 0, n_sm = 1;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return (int)cudaGetLastError();
-  // NR adjacent rays a block, at least one block a multiprocessor
-  int NR = RT_THREADS / D;
-  NR = NR < R / (n_sm > 0 ? n_sm : 1) ? NR : R / (n_sm > 0 ? n_sm : 1);
-  NR = NR < 1 ? 1 : (NR > NR_MAX ? NR_MAX : NR);
-  int bd = ((NR * D + 31) / 32) * 32;
-  bd = bd < RT_THREADS ? bd : RT_THREADS;
-  int CH = BR_BYTES / (int)(sizeof(Bracket) * NR * G);
-  CH = CH < 1 ? 1 : (CH > CH_MAX ? CH_MAX : CH);
-  while (bd > 32 && rt_smem<T>(bd, NR, CH, G, uni) > RT_SMEM_MAX) bd -= 32;
-  const size_t smem = rt_smem<T>(bd, NR, CH, G, uni);
-  if (smem > RT_SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kernel = rt_kernel<T, TB>(uni);
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(R + NR - 1) / NR, bd, smem, stream>>>(
+  RtShape sh;
+  if (const int e = rt_shape(kernel, rt_smem_of<T>(G, uni), R, tb.ax.D, G,
+                             sh))
+    return e;
+  kernel<<<sh.groups, sh.bd, sh.smem, stream>>>(
       tb, (const T*)p[0], (const int*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const T*)p[8], (const T*)p[9], (const T*)p[10], (const uint8_t*)p[11],
       (const T*)p[12], (T*)p[13], (T*)p[14], R, S, G, W, n_src, flags,
-      ig_co2, ig_h2o, bbt, hint, NR, CH, cs);
+      ig_co2, ig_h2o, bbt, hint, sh.NR, sh.CH, cs);
   return (int)cudaGetLastError();
 }
 
@@ -244,7 +281,7 @@ extern "C" int jt_ega_rt(
       K < 1 || n_src < 2)
     return (int)cudaErrorInvalidValue;
   const void* t[8] = {tp0, tp1, p_ax, t_ax, nu, nt, np_, tp7};
-  const void* p[15] = {cc, window, sr, st, nu_ch, lp,     lt,  lds,
+  const void* p[15] = {cc, window, sr, st,     nu_ch,  lp,  lt, lds,
                        lq, lk,     lu, lvalid, ltsurf, rad, tau};
   const int a[11] = {R,   S,      G,      W,   n_src,  flags,
                      ig_co2, ig_h2o, bbt, uniform, hint};
@@ -274,4 +311,30 @@ extern "C" int jt_ega_rt_registers(int uniform, int exact, int is_double,
   if (e != cudaSuccess) return (int)e;
   *(int*)out = at.numRegs;
   return 0;
+}
+
+// The launch shape of a call of the RT kernel, or with ``record`` the
+// record kernel (ega_jvp_fast.cu), at R rays, D channels and G gases
+// (uniform, exact, is_double as jt_ega_rt's): into out (int[5]) the
+// resident blocks a multiprocessor
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the threads a block,
+// the rays a group, the multiprocessors and the groups, one block each
+extern "C" int jt_ega_rt_shape(int record, int R, int D, int G, int uniform,
+                               int exact, int is_double, void* out) {
+  if (R < 1 || D < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  const bool u = uniform != 0;
+  int* o = (int*)out;
+  if (record) return rec_shape_out(R, D, G, u, exact != 0, is_double != 0, o);
+  auto shape = [&](auto kernel, auto smem) {
+    return rt_shape_out(kernel, smem, R, D, G, o);
+  };
+  return is_double
+             ? (exact ? shape(rt_kernel<double, ExactTab>(u),
+                              rt_smem_of<double>(G, u))
+                      : shape(rt_kernel<double, FastTab>(u),
+                              rt_smem_of<double>(G, u)))
+             : (exact ? shape(rt_kernel<float, ExactTab>(u),
+                              rt_smem_of<float>(G, u))
+                      : shape(rt_kernel<float, FastTab>(u),
+                              rt_smem_of<float>(G, u)));
 }

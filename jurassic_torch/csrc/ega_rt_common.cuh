@@ -99,12 +99,13 @@ struct FastTab {
   int K;
 };
 
-// The exact tables (ops.ega.EgaDeviceTables): each cell's u and eps rows
-// contiguous, as the eager pass gathers them
+// The exact tables (ops.ega.EgaDeviceTables): the u and eps rows
+// channel-innermost, so that a warp's channels at one row entry read
+// adjacent values (entry k of a channel's row at k D)
 struct ExactTab {
   Axes ax;
-  const float* __restrict__ u;       // [G, P, T, D, U]
-  const float* __restrict__ eps;     // [G, P, T, D, U]
+  const float* __restrict__ u;       // [G, P, T, U, D]
+  const float* __restrict__ eps;     // [G, P, T, U, D]
   const int* __restrict__ nu;        // [G, P, T, D]
   const uint8_t* __restrict__ mono;  // [G, P, T, D] bit 0 eps, bit 1 u row
   int U;
@@ -192,6 +193,9 @@ __device__ __forceinline__ void corner_fast(const FastTab& tb,
                                             T& c_T, T& c_u, bool& ok) {
   const int P = tb.ax.P, NT = tb.ax.NT, K = tb.K, D = tb.ax.D;
   const int PT = P * NT;
+#ifdef JT_SPLIT_CELL0
+  ipt = 0;  // tools/rt_split.py: every corner reads its gas's cell 0
+#endif
   const int cell = ipt < 0 ? 0 : (ipt > PT - 1 ? PT - 1 : ipt);
   const size_t gc = ((size_t)g * PT + cell) * D + d;
   const T l2u0 = (T)__ldg(tb.l2u0 + gc);
@@ -216,7 +220,13 @@ __device__ __forceinline__ void corner_fast(const FastTab& tb,
   T e_lo = T(0), e_hi = T(0);
   if (hint) {
     const int c = h < 0 ? 0 : (h > lmax ? lmax : h);
+#ifdef JT_SPLIT_INDEX
+    lo = c;  // tools/rt_split.py: the hint, unchecked
+    e_lo = gather(c);
+    e_hi = gather(c + 1);
+#else
     lo = hint_check<T>(gather, c, lmax, target, e_lo, e_hi);
+#endif
   }
   if (lo < 0) {  // the fixed count of halvings
     int l = 0, hi = nk - 1 < 1 ? 1 : nk - 1;
@@ -255,20 +265,23 @@ __device__ __forceinline__ void corner_fast(const FastTab& tb,
   c_u = s_fwd;
 }
 
-// ops.ega._count_index over an exact u or eps row (U entries, the first n
-// counted) at x, as ops.ega_jvp.exact_row_index states it: on a row that
-// does not decrease within its count (``mono``, which the host decided
-// with n <= U) the hint's neighbourhood, else a halving for #{v <= x};
-// otherwise a count over the n entries
+// ops.ega._count_index over an exact u or eps row (U entries at a stride
+// of D, the first n counted) at x, as ops.ega_jvp.exact_row_index states
+// it: on a row that does not decrease within its count (``mono``, which
+// the host decided with n <= U) the hint's neighbourhood, else a halving
+// for #{v <= x}; otherwise a count over the n entries
 template <typename T>
 __device__ __forceinline__ int row_index(const float* __restrict__ row,
-                                         int U, int n, T x, bool mono,
-                                         int hint) {
+                                         int U, int D, int n, T x,
+                                         bool mono, int hint) {
   if (n < 2) return 0;
   const int lmax = n - 2;
+#ifdef JT_SPLIT_INDEX
+  return hint < 0 ? 0 : (hint > lmax ? lmax : hint);  // tools/rt_split.py
+#endif
   if (mono) {
     auto at = [&](int k) -> T {
-      return k < 0 || k >= n ? T(0) : (T)__ldg(row + k);
+      return k < 0 || k >= n ? T(0) : (T)__ldg(row + (size_t)k * D);
     };
     const int c = hint < 0 ? 0 : (hint > lmax ? lmax : hint);
     T a, b;
@@ -277,7 +290,7 @@ __device__ __forceinline__ int row_index(const float* __restrict__ row,
     int lo = 0, hi = n;  // the first entry above x
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if ((T)__ldg(row + mid) <= x)
+      if ((T)__ldg(row + (size_t)mid * D) <= x)
         lo = mid + 1;
       else
         hi = mid;
@@ -287,7 +300,8 @@ __device__ __forceinline__ int row_index(const float* __restrict__ row,
   }
   const int m = U < n ? U : n;
   int below = 0;
-  for (int k = 0; k < m; ++k) below += (T)__ldg(row + k) <= x ? 1 : 0;
+  for (int k = 0; k < m; ++k)
+    below += (T)__ldg(row + (size_t)k * D) <= x ? 1 : 0;
   const int idx = below - 1 < 0 ? 0 : below - 1;
   return idx < lmax ? idx : lmax;
 }
@@ -308,22 +322,25 @@ __device__ __forceinline__ void corner_exact(const ExactTab& tb, int g,
   const int P = tb.ax.P, NT = tb.ax.NT, D = tb.ax.D, U = tb.U;
   pc = pc < 0 ? 0 : (pc > P - 1 ? P - 1 : pc);
   ic = ic < 0 ? 0 : (ic > NT - 1 ? NT - 1 : ic);
-  const size_t cell = (((size_t)g * P + pc) * NT + ic) * D + d;
-  const int n = __ldg(tb.nu + cell);
-  const int mono = __ldg(tb.mono + cell);
+#ifdef JT_SPLIT_CELL0
+  pc = ic = 0;  // tools/rt_split.py: every corner reads its gas's cell 0
+#endif
+  const size_t pt = ((size_t)g * P + pc) * NT + ic;
+  const int n = __ldg(tb.nu + pt * D + d);
+  const int mono = __ldg(tb.mono + pt * D + d);
   ok = n >= 2;
-  const float* __restrict__ er = tb.eps + cell * U;
-  const float* __restrict__ ur = tb.u + cell * U;
+  const float* __restrict__ er = tb.eps + pt * U * D + d;
+  const float* __restrict__ ur = tb.u + pt * U * D + d;
   // ops.ega._last: the index clipped into the row
   auto ld = [&](const float* r, int k) -> T {
-    return (T)__ldg(r + (k < 0 ? 0 : (k > U - 1 ? U - 1 : k)));
+    return (T)__ldg(r + (size_t)(k < 0 ? 0 : (k > U - 1 ? U - 1 : k)) * D);
   };
-  const int i = row_index<T>(er, U, n, target, (mono & 1) != 0, h);
+  const int i = row_index<T>(er, U, D, n, target, (mono & 1) != 0, h);
   const T e0 = ld(er, i), e1 = ld(er, i + 1);
   const T v0 = ld(ur, i), v1 = ld(ur, i + 1);
   const T u_c = lip(e0, v0, e1, v1, target);
   const T u_new = u_c + u_seg;
-  const int j = row_index<T>(ur, U, n, u_new, (mono & 2) != 0, i);
+  const int j = row_index<T>(ur, U, D, n, u_new, (mono & 2) != 0, i);
   h = j;
   const T w0 = ld(ur, j), w1 = ld(ur, j + 1);
   const T f0 = ld(er, j), f1 = ld(er, j + 1);
@@ -333,6 +350,174 @@ __device__ __forceinline__ void corner_exact(const ExactTab& tb, int g,
   const T s_fwd = in01(raw) ? (f1 - f0) / guard(w1 - w0) : T(0);
   c_T = s_fwd * s_inv;
   c_u = s_fwd;
+}
+
+// An exact segment's corners in flight.  corner_exact above searches as
+// it loads: a chain of five dependent trips to memory (the row count, the
+// eps row around the hint, the u row at the eps index, the u row around
+// it, the entries at the u index), and a gas's four corners ran one after
+// another.  Yet the first trip depends only on the bracket and on the
+// last segment's index h of the (gas, corner) lane.  So gas_corners
+// issues the first trip of JT_RT_CORNERS corners together (exact_load:
+// the cell's count and row flags and its eps row around h), then finishes
+// each corner (exact_finish: the hinted eps check in the window, one trip
+// for the u row around the eps index, the hinted u check in it, the lips
+// and the slopes).  An index the windows miss is searched in the row
+// itself, as corner_exact would (a halving; row_index_rows, out of line);
+// a row that is not monotone, or shorter than 2, takes corner_exact
+// whole.  Each path gives corner_exact's indices and values, so its bits.
+// The fast corners keep corner_fast: their eps rows are channel-innermost
+// and a corner three trips, and windows there cost more registers than
+// they saved (tools/rt_split.py, PERF.md).  tools/rt_split.py builds
+// variants with -DJT_RT_CORNERS=1 or 2.
+#ifndef JT_RT_CORNERS
+#define JT_RT_CORNERS 4
+#endif
+
+// entry o of a window, by selects (no local memory)
+template <int N>
+__device__ __forceinline__ float pick(const float (&w)[N], int o) {
+  float r = w[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) r = o == j ? w[j] : r;
+  return r;
+}
+
+// The exact tables' first trip of a corner: the cell's count and row
+// flags and its eps row at h - 1 .. h + 2 (indices clamped into the row)
+struct ExactCorner {
+  size_t row;  // the cell's entry 0 of channel d (entry j at row + j D)
+  int n, mono, h, pc, ic;
+  float ew[4];
+};
+
+__device__ __forceinline__ void exact_load(const ExactTab& tb, int g, int d,
+                                           int pc, int ic, int h,
+                                           ExactCorner& k) {
+  const int P = tb.ax.P, NT = tb.ax.NT, D = tb.ax.D, U = tb.U;
+  k.pc = pc;
+  k.ic = ic;
+  pc = pc < 0 ? 0 : (pc > P - 1 ? P - 1 : pc);
+  ic = ic < 0 ? 0 : (ic > NT - 1 ? NT - 1 : ic);
+#ifdef JT_SPLIT_CELL0
+  pc = ic = 0;
+#endif
+  const size_t pt = ((size_t)g * P + pc) * NT + ic;
+  k.n = __ldg(tb.nu + pt * D + d);
+  k.mono = __ldg(tb.mono + pt * D + d);
+  k.h = h;
+  k.row = pt * U * D + d;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int i = h - 1 + j;
+    i = i < 0 ? 0 : (i > U - 1 ? U - 1 : i);
+    k.ew[j] = __ldg(tb.eps + k.row + (size_t)i * D);
+  }
+}
+
+// row_index out of line: the halving where a hinted check fails
+template <typename T>
+__device__ __noinline__ int row_index_rows(const float* __restrict__ row,
+                                           int U, int D, int n, T x,
+                                           int hint) {
+  return row_index<T>(row, U, D, n, x, true, hint);
+}
+
+// corner_exact on a cell whose rows are both monotone, from the eps
+// window and one trip to the u row around the eps index; false (nothing
+// written) on any other cell
+template <typename T>
+__device__ __forceinline__ bool exact_finish(const ExactTab& tb,
+                                             const ExactCorner& k, T target,
+                                             T u_seg, int& h, T& eps_c,
+                                             T& c_T, T& c_u, bool& ok) {
+  const int n = k.n, lmax = n - 2, U = tb.U, D = tb.ax.D;
+  if (n < 2 || k.mono != 3) return false;
+  const float* __restrict__ er = tb.eps + k.row;
+  const float* __restrict__ ur = tb.u + k.row;
+  // ops.ega._count_index's entries: 0 beyond the row's count
+  auto at_e = [&](int i) -> T {
+    return i < 0 || i >= n ? T(0) : (T)pick(k.ew, i - k.h + 1);
+  };
+  T a, b;
+#ifdef JT_SPLIT_INDEX
+  const int i = k.h < lmax ? k.h : lmax;
+#else
+  int i = k.h <= lmax ? hint_check<T>(at_e, k.h, lmax, target, a, b) : -1;
+  if (i < 0) i = row_index_rows<T>(er, U, D, n, target, k.h);
+#endif
+  // the row's entries i and i + 1 (i <= n - 2 <= U - 2)
+  T e0, e1;
+  if (i >= k.h - 1 && i <= k.h + 1) {
+    e0 = at_e(i);
+    e1 = at_e(i + 1);
+  } else {
+    e0 = (T)__ldg(er + (size_t)i * D);
+    e1 = (T)__ldg(er + (size_t)(i + 1) * D);
+  }
+  // the u row at i - 1 .. i + 2: the lip's entries and the u check's
+  float uw[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int x = i - 1 + j;
+    x = x < 0 ? 0 : (x > U - 1 ? U - 1 : x);
+    uw[j] = __ldg(ur + (size_t)x * D);
+  }
+  auto at_u = [&](int x) -> T {
+    return x < 0 || x >= n ? T(0) : (T)pick(uw, x - i + 1);
+  };
+  const T v0 = at_u(i), v1 = at_u(i + 1);
+  const T u_c = lip(e0, v0, e1, v1, target);
+  const T u_new = u_c + u_seg;
+#ifdef JT_SPLIT_INDEX
+  const int j = i;
+#else
+  int j = hint_check<T>(at_u, i, lmax, u_new, a, b);
+  if (j < 0) j = row_index_rows<T>(ur, U, D, n, u_new, i);
+#endif
+  h = j;
+  T w0, w1, f0, f1;
+  if (j >= i - 1 && j <= i + 1) {
+    w0 = at_u(j);
+    w1 = at_u(j + 1);
+  } else {
+    w0 = (T)__ldg(ur + (size_t)j * D);
+    w1 = (T)__ldg(ur + (size_t)(j + 1) * D);
+  }
+  if (j >= k.h - 1 && j <= k.h + 1) {
+    f0 = at_e(j);
+    f1 = at_e(j + 1);
+  } else {
+    f0 = (T)__ldg(er + (size_t)j * D);
+    f1 = (T)__ldg(er + (size_t)(j + 1) * D);
+  }
+  const T raw = lip(w0, f0, w1, f1, u_new);
+  eps_c = c01(raw);
+  const T s_inv = (v1 - v0) / guard(e1 - e0);
+  const T s_fwd = in01(raw) ? (f1 - f0) / guard(w1 - w0) : T(0);
+  c_T = s_fwd * s_inv;
+  c_u = s_fwd;
+  ok = true;
+  return true;
+}
+
+// corner_exact out of line, its results by value (so that the caller's
+// corner values stay in registers): the cells exact_finish declines
+template <typename T>
+struct CornerOut {
+  T eps, c_T, c_u;
+  int h;
+  bool ok;
+};
+template <typename T>
+__device__ __noinline__ CornerOut<T> corner_exact_rows(
+    const ExactTab tb, int g, int d, int pc, int ic, T target, T u_seg,
+    int h) {
+  CornerOut<T> o;
+  o.h = h;
+  corner_exact(tb, g, d, pc, ic, target, u_seg, o.h, o.eps, o.c_T, o.c_u,
+               o.ok);
+  return o;
 }
 
 // The four corners of gas g at bracket b, corner c in cw[3 c .. 3 c + 2]
@@ -356,6 +541,8 @@ __device__ __forceinline__ bool gas_corners(const FastTab& tb,
   }
   return ok_all;
 }
+// ... the exact corners with the first trips of JT_RT_CORNERS corners
+// issued before any of them is finished
 template <typename T>
 __device__ __forceinline__ bool gas_corners(const ExactTab& tb,
                                             const Consts& cs, int g, int d,
@@ -364,15 +551,35 @@ __device__ __forceinline__ bool gas_corners(const ExactTab& tb,
                                             int hs, T* cw) {
   (void)cs;
   (void)hint;
+  constexpr int NC = JT_RT_CORNERS;
   bool ok_all = true;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int pc = b.ipr + (c >> 1);
-    const int ic = (c < 2 ? b.it0 : b.it1) + (c & 1);
-    bool ok;
-    corner_exact(tb, g, d, pc, ic, target, u_seg, hints[c * hs], cw[c * 3],
-                 cw[c * 3 + 1], cw[c * 3 + 2], ok);
-    ok_all = ok_all && ok;
+  for (int c0 = 0; c0 < 4; c0 += NC) {
+    ExactCorner k[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int cc = c0 + c;
+      exact_load(tb, g, d, b.ipr + (cc >> 1),
+                 (cc < 2 ? b.it0 : b.it1) + (cc & 1), hints[cc * hs], k[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int cc = c0 + c;
+      bool ok;
+      int& h = hints[cc * hs];
+      T* o = cw + cc * 3;
+      if (!exact_finish<T>(tb, k[c], target, u_seg, h, o[0], o[1], o[2],
+                           ok)) {
+        const CornerOut<T> r = corner_exact_rows<T>(
+            tb, g, d, k[c].pc, k[c].ic, target, u_seg, h);
+        h = r.h;
+        o[0] = r.eps;
+        o[1] = r.c_T;
+        o[2] = r.c_u;
+        ok = r.ok;
+      }
+      ok_all = ok_all && ok;
+    }
   }
   return ok_all;
 }
@@ -388,6 +595,12 @@ template <typename T>
 struct Bil<ExactTab, T> {
   using type = double;
 };
+#ifdef JT_SPLIT_BIL32
+template <>
+struct Bil<ExactTab, float> {  // tools/rt_split.py: the step in float32
+  using type = float;
+};
+#endif
 
 // A gas's factor and its partials: (factor, d/d tau_path, d/dt, d/dp,
 // d/du) from its bracket and four corners (eps, c_T, c_u in cw[c 3 +
@@ -566,6 +779,100 @@ __device__ __forceinline__ T epilogue(const T* __restrict__ sr,
   }
   return r_out;
 }
+
+// The launch of the RT kernels (ega_rt.cu's, and ega_jvp_fast.cu's record
+// kernel): a block takes a group of NR adjacent rays x all channels, a
+// thread a (ray, channel) lane; NR so that every multiprocessor gets a
+// group; CH segments bracketed ahead into shared memory.
+constexpr int RT_THREADS = 256;  // most (ray, channel) lanes of a block
+constexpr int NR_MAX = 8;        // most rays of a group
+constexpr int CH_MAX = 64;       // segments bracketed ahead per chunk
+constexpr int BR_BYTES = 16384;  // shared memory of a chunk's brackets
+constexpr int RT_SMEM_MAX = 200 * 1024;
+
+// The resident blocks an SM that a kernel's launch bounds ask (REC: the
+// record kernel), which caps its registers: two on the exact tables (128
+// registers; the corners' windows ask more), three for the record kernel
+// on the fast ones (80); the fast RT kernel asks none (ega_rt.cu).
+// tools/rt_split.py builds variants with -DJT_RT_BLOCKS / -DJT_REC_BLOCKS.
+#ifndef JT_RT_BLOCKS
+#define JT_RT_BLOCKS 0
+#endif
+#ifndef JT_REC_BLOCKS
+#define JT_REC_BLOCKS 0
+#endif
+template <class TB>
+struct IsExact {
+  static constexpr bool value = false;
+};
+template <>
+struct IsExact<ExactTab> {
+  static constexpr bool value = true;
+};
+template <class TB, bool REC>
+struct MinBlocks {
+  static constexpr int split = REC ? JT_REC_BLOCKS : JT_RT_BLOCKS;
+  static constexpr int value =
+      split > 0 ? split : (IsExact<TB>::value ? 2 : 3);
+};
+
+// A launch's shape: NR rays a group and a block, bd threads a block, CH
+// segments bracketed ahead, its shared memory, the multiprocessors and
+// the groups (the blocks)
+struct RtShape {
+  int NR, bd, CH, n_sm, groups;
+  size_t smem;
+};
+
+// The shape of a launch of ``kernel`` at R rays, D channels and G gases,
+// ``smem(bd, NR, CH)`` its shared memory; sets the kernel's dynamic
+// shared memory
+template <class K, class Smem>
+int rt_shape(K kernel, Smem smem, int R, int D, int G, RtShape& sh) {
+  int dev = 0;
+  sh.n_sm = 1;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sh.n_sm, cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return (int)cudaGetLastError();
+  const int n_sm = sh.n_sm > 0 ? sh.n_sm : 1;
+  int NR = RT_THREADS / D;
+  NR = NR < R / n_sm ? NR : R / n_sm;
+  NR = NR < 1 ? 1 : (NR > NR_MAX ? NR_MAX : NR);
+  int bd = ((NR * D + 31) / 32) * 32;
+  bd = bd < RT_THREADS ? bd : RT_THREADS;
+  int CH = BR_BYTES / (int)(sizeof(Bracket) * NR * G);
+  CH = CH < 1 ? 1 : (CH > CH_MAX ? CH_MAX : CH);
+  while (bd > 32 && smem(bd, NR, CH) > RT_SMEM_MAX) bd -= 32;
+  sh.NR = NR;
+  sh.bd = bd;
+  sh.CH = CH;
+  sh.groups = (R + NR - 1) / NR;
+  sh.smem = smem(bd, NR, CH);
+  if (sh.smem > RT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+}
+
+// The shape into out (int[5]): the resident blocks a multiprocessor
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the threads a block,
+// the rays a group, the multiprocessors and the groups
+template <class K, class Smem>
+int rt_shape_out(K kernel, Smem smem, int R, int D, int G, int* out) {
+  RtShape sh;
+  if (const int e = rt_shape(kernel, smem, R, D, G, sh)) return e;
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, sh.bd, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  const int v[5] = {per_sm, sh.bd, sh.NR, sh.n_sm, sh.groups};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The record kernel's rt_shape_out by instantiation (ega_jvp_fast.cu)
+int rec_shape_out(int R, int D, int G, bool uni, bool exact, bool dbl,
+                  int* out);
 
 // The table pointers and sizes of either kind from the C entry points'
 // arguments: fast (eps, log2_u0, p, t, nu, nt, np, valid; K) or exact (u,

@@ -717,7 +717,7 @@ class ForwardModel:
                     G * D * (2 * T * b + 3 * max(P, T) + 12 * 4 * 8))
             if mode == "exact":
                 step = (step[0], step[1]
-                        + G * D * tbl.u.shape[-1] * (2 * (4 + b) + 3))
+                        + G * D * tbl.u.shape[3] * (2 * (4 + b) + 3))
         out = (2 * (3 * D + 3) * 8 + 4 * D * 8, 0)
         kept = (4 * D * 4 + (los[0] if self._hybrid() else 0),
                 los[1] if self._hybrid() else 0)

@@ -78,6 +78,8 @@ ENTRY_POINTS = {
     # stream
     "jt_ega_rt": [_P] * 23 + [_I] * 16 + [_D] * 8 + [_I, _P],
     "jt_ega_rt_registers": [_I] * 3 + [_P],   # uniform exact is_double out
+    # record R D G uniform exact is_double; out: the launch shape (int[5])
+    "jt_ega_rt_shape": [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -164,6 +164,70 @@ def exact_row_index(row: np.ndarray, n: int, target: float,
     return min(max(below - 1, 0), lmax), "count"
 
 
+def exact_corner_indices(e_row: np.ndarray, u_row: np.ndarray, n: int,
+                         mono: int, hint: int, target: float,
+                         u_seg: float) -> tuple[int, int, str]:
+    """(i, j, path): an exact corner's two searches as the RT kernels make
+    them (``csrc/ega_rt_common.cuh``, ``exact_load`` / ``exact_finish``):
+    i of ``target`` in the eps row, j of u_new = lip(eps[i], u[i],
+    eps[i + 1], u[i + 1], target) + ``u_seg`` in the u row (rows of U
+    entries, the first ``n`` counted; ``mono`` the cell's
+    ``rows_monotone_exact`` bits; ``hint`` the last segment's j).
+
+    Where both rows are monotone and n >= 2, the kernel loads the eps row
+    at hint - 1 .. hint + 2 with the cell's count, checks i = hint, hint
+    + 1, hint - 1 there (:func:`hinted_halving`'s property; where hint <=
+    n - 2), else searches the row (:func:`exact_row_index`); then loads
+    the u row at i - 1 .. i + 2 and checks j = i, i + 1, i - 1 there, else
+    searches that row.  ``path`` names what answered: "window" (both
+    checks), "eps row", "u row" or "rows" (the searches), "corner" (a row
+    not monotone, or n < 2: the whole corner as
+    :func:`exact_row_index` states it).  Either way the indices are
+    ``ops.ega._count_index``'s.  A window read outside its window raises
+    here."""
+    U = e_row.shape[0]
+    last = lambda row, k: float(row[min(max(k, 0), U - 1)])
+    if n < 2 or mono != 3:
+        i, _ = exact_row_index(e_row, n, target, bool(mono & 1), hint)
+        u_new = _lip_scalar(last(e_row, i), last(u_row, i),
+                            last(e_row, i + 1), last(u_row, i + 1),
+                            target) + u_seg
+        j, _ = exact_row_index(u_row, n, u_new, bool(mono & 2), i)
+        return i, j, "corner"
+    lmax = n - 2
+
+    def check(win, c, x):
+        def at(k):                          # 0 beyond the count
+            return 0.0 if k < 0 or k >= n else float(win[k])
+        for i in (c, c + 1, c - 1):
+            if 0 <= i <= lmax and (i == 0 or at(i) <= x) and (
+                    i == lmax or at(i + 1) > x):
+                return i
+        return -1
+    ew = {k: e_row[min(max(k, 0), U - 1)] for k in range(hint - 1, hint + 3)}
+    i = check(ew, hint, target) if 0 <= hint <= lmax else -1
+    searched = []
+    if i < 0:
+        i, _ = exact_row_index(e_row, n, target, True, hint)
+        searched.append("eps row")
+    uw = {k: u_row[min(max(k, 0), U - 1)] for k in range(i - 1, i + 3)}
+    u_new = _lip_scalar(last(e_row, i), float(uw[i]), last(e_row, i + 1),
+                        float(uw[i + 1]), target) + u_seg
+    j = check(uw, i, u_new)
+    if j < 0:
+        j, _ = exact_row_index(u_row, n, u_new, True, i)
+        searched.append("u row")
+    if not searched:
+        return i, j, "window"
+    return i, j, searched[0] if len(searched) == 1 else "rows"
+
+
+def _lip_scalar(x0, y0, x1, y1, x):
+    """``ops.ega._lip`` on floats."""
+    d = x1 - x0
+    return y0 + (x - x0) * (y1 - y0) / (1.0 if d == 0 else d)
+
+
 def shared_brackets(tbl: FastDeviceTables, p, t):
     """(ipr, it0, it1) [R, G] of the points (p, t) [R] on channel 0's
     axes: the record kernel's bracket of a (segment, gas) for every
@@ -357,9 +421,9 @@ def kernel_tables(tbl: EgaDeviceTables | FastDeviceTables, G: int, dev):
     per-channel loads coalesce, the integers as int32."""
     exact = isinstance(tbl, EgaDeviceTables)
     if exact:
-        G_t, P, T, D, K = tbl.u.shape
-        payload = (("tables u", tbl.u, torch.float32, (G_t, P, T, D, K)),
-                   ("tables eps", tbl.eps, torch.float32, (G_t, P, T, D, K)))
+        G_t, P, T, K, D = tbl.u.shape
+        payload = (("tables u", tbl.u, torch.float32, (G_t, P, T, K, D)),
+                   ("tables eps", tbl.eps, torch.float32, (G_t, P, T, K, D)))
     else:
         G_t, P, T, K, D = tbl.eps.shape
         payload = (("tables eps", tbl.eps, torch.float32, (G_t, P, T, K, D)),

@@ -39,6 +39,30 @@ def registers(uniform: bool, exact: bool, dtype) -> int:
     return out.value
 
 
+def launch_shape(R: int, D: int, G: int, uniform: bool, exact: bool,
+                 dtype, record: bool = False) -> dict:
+    """The launch shape the library takes for a call of the RT kernel (or,
+    with ``record``, the record kernel of ``ops.ega_jvp``) at R rays, D
+    channels and G gases (``jt_ega_rt_shape``): resident blocks a
+    multiprocessor, threads a block, rays a group, multiprocessors, the
+    groups (one block each), the resident slots, the rounds of resident
+    blocks the groups take (ceil(groups / slots)) and the groups a slot."""
+    import ctypes
+    out = (ctypes.c_int * 5)()
+    rc = _library().jt_ega_rt_shape(
+        int(bool(record)), R, D, G, int(bool(uniform)), int(bool(exact)),
+        int(dtype == torch.float64), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"jt_ega_rt_shape failed (cudaError {rc})")
+    per_sm, bd, nr, n_sm, groups = out
+    slots = per_sm * n_sm
+    return {"blocks_per_sm": per_sm, "threads": bd, "rays_per_block": nr,
+            "sms": n_sm, "blocks": groups, "groups": groups,
+            "slots": slots,
+            "rounds": -(-groups // slots) if slots else None,
+            "groups_per_slot": groups / slots if slots else None}
+
+
 def rt_integrate_cuda(tbl: EgaDeviceTables | FastDeviceTables, sr, st, nu,
                       cc: ContinuaCoeffs, window, los: LosData, flags,
                       ig_co2: int, ig_h2o: int, bbt: bool):

@@ -117,4 +117,5 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
         "jt_trace_jvp_registers", "jt_trace_jvp_smem_bytes",
         "jt_trace_quo_check",
         "jt_ega_jvp_record", "jt_ega_jvp_contract", "jt_ega_jvp_scratch",
-        "jt_ega_jvp_registers", "jt_ega_rt", "jt_ega_rt_registers"}
+        "jt_ega_jvp_registers", "jt_ega_rt", "jt_ega_rt_registers",
+        "jt_ega_rt_shape"}
