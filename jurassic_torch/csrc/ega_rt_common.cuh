@@ -366,10 +366,13 @@ __device__ __forceinline__ void corner_exact(const ExactTab& tb, int g,
 // itself, as corner_exact would (a halving; row_index_rows, out of line);
 // a row that is not monotone, or shorter than 2, takes corner_exact
 // whole.  Each path gives corner_exact's indices and values, so its bits.
-// The fast corners keep corner_fast: their eps rows are channel-innermost
-// and a corner three trips, and windows there cost more registers than
-// they saved (tools/rt_split.py, PERF.md).  tools/rt_split.py builds
-// variants with -DJT_RT_CORNERS=1 or 2.
+// The record kernel's fast corners keep corner_fast: their eps rows are
+// channel-innermost and a corner three trips, and windows there cost more
+// registers than they saved in a thread that carries every gas
+// (tools/rt_split.py, PERF.md); the fast RT kernel, a thread a gas, has
+// its own statement of the same operations (ega_rt.cu, fast_load and
+// fast_finish).  tools/rt_split.py builds variants with
+// -DJT_RT_CORNERS=1 or 2.
 #ifndef JT_RT_CORNERS
 #define JT_RT_CORNERS 4
 #endif
@@ -780,10 +783,12 @@ __device__ __forceinline__ T epilogue(const T* __restrict__ sr,
   return r_out;
 }
 
-// The launch of the RT kernels (ega_rt.cu's, and ega_jvp_fast.cu's record
-// kernel): a block takes a group of NR adjacent rays x all channels, a
-// thread a (ray, channel) lane; NR so that every multiprocessor gets a
-// group; CH segments bracketed ahead into shared memory.
+// The launch of the exact RT kernel (ega_rt.cu) and of the record kernel
+// (ega_jvp_fast.cu): a block takes a group of NR adjacent rays x all
+// channels, a thread a (ray, channel) lane; NR so that every
+// multiprocessor gets a group; CH segments bracketed ahead into shared
+// memory.  The fast RT kernel, a thread a (ray, channel, gas), has its own
+// (ega_rt.cu, rtf_shape).
 constexpr int RT_THREADS = 256;  // most (ray, channel) lanes of a block
 constexpr int NR_MAX = 8;        // most rays of a group
 constexpr int CH_MAX = 64;       // segments bracketed ahead per chunk
@@ -793,8 +798,9 @@ constexpr int RT_SMEM_MAX = 200 * 1024;
 // The resident blocks an SM that a kernel's launch bounds ask (REC: the
 // record kernel), which caps its registers: two on the exact tables (128
 // registers; the corners' windows ask more), three for the record kernel
-// on the fast ones (80); the fast RT kernel asks none (ega_rt.cu).
-// tools/rt_split.py builds variants with -DJT_RT_BLOCKS / -DJT_REC_BLOCKS.
+// on the fast ones (80); the fast RT kernel's own bound is RTF_BLOCKS
+// (ega_rt.cu).  tools/rt_split.py builds variants with -DJT_RT_BLOCKS
+// (both RT kernels) / -DJT_REC_BLOCKS.
 #ifndef JT_RT_BLOCKS
 #define JT_RT_BLOCKS 0
 #endif
@@ -854,9 +860,12 @@ int rt_shape(K kernel, Smem smem, int R, int D, int G, RtShape& sh) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
 }
 
-// The shape into out (int[5]): the resident blocks a multiprocessor
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the threads a block,
-// the rays a group, the multiprocessors and the groups
+// The shape into out (int[RT_SHAPE_LEN]): the resident blocks a
+// multiprocessor (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the
+// threads a block, the rays a group, the multiprocessors, the groups, the
+// threads a (ray, channel) lane (1: a thread carries all its gases), the
+// lanes a pass (a thread each) and the passes over the group's lanes
+constexpr int RT_SHAPE_LEN = 8;
 template <class K, class Smem>
 int rt_shape_out(K kernel, Smem smem, int R, int D, int G, int* out) {
   RtShape sh;
@@ -865,8 +874,10 @@ int rt_shape_out(K kernel, Smem smem, int R, int D, int G, int* out) {
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, sh.bd, sh.smem);
   if (e != cudaSuccess) return (int)e;
-  const int v[5] = {per_sm, sh.bd, sh.NR, sh.n_sm, sh.groups};
-  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  const int v[RT_SHAPE_LEN] = {
+      per_sm, sh.bd, sh.NR, sh.n_sm, sh.groups, 1, sh.bd,
+      (sh.NR * D + sh.bd - 1) / sh.bd};
+  for (int i = 0; i < RT_SHAPE_LEN; ++i) out[i] = v[i];
   return 0;
 }
 

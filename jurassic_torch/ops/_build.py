@@ -78,8 +78,11 @@ ENTRY_POINTS = {
     # stream
     "jt_ega_rt": [_P] * 23 + [_I] * 16 + [_D] * 8 + [_I, _P],
     "jt_ega_rt_registers": [_I] * 3 + [_P],   # uniform exact is_double out
-    # record R D G uniform exact is_double; out: the launch shape (int[5])
+    # record R D G uniform exact is_double; out: the launch shape (int[8])
     "jt_ega_rt_shape": [_I] * 7 + [_P],
+    # out: the fast RT kernel's hint count (uint64 [4][64][4]), from a
+    # library built with -DJT_SPLIT_HINTS (tools/rt_split.py)
+    "jt_ega_rt_hint_counts": [_P],
 }
 
 _lib = None

@@ -99,7 +99,9 @@ class FastDeviceTables(NamedTuple):
     and ``monotone`` are facts of the tables, decided once on upload
     (:func:`axes_uniform`, :func:`rows_monotone`): the RT tangent kernel
     brackets once per (segment, gas) where the axes are the same in every
-    channel, and hints its corner searches where the rows are monotone."""
+    channel, and hints its corner searches where the rows are monotone;
+    ``axes_monotone`` (:func:`axes_monotone`) lets the fast RT kernel hint
+    its per-channel bracket searches."""
 
     np_: torch.Tensor      # [G, D]
     nt: torch.Tensor       # [G, P, D]
@@ -111,6 +113,7 @@ class FastDeviceTables(NamedTuple):
     valid: torch.Tensor    # [G, P, T, D] bool
     uniform: bool = False
     monotone: bool = False
+    axes_monotone: bool = False
 
 
 def _ten(a, device):
@@ -149,7 +152,8 @@ def fast_tables_to_device(tbl: FastTables, device) -> FastDeviceTables:
         p=t(tbl.p, 0, 2, 1), t=t(tbl.t, 0, 1, 3, 2),
         nu=_ten(tbl.nu, device).long(), log2_u0=_ten(tbl.log2_u0, device),
         eps=_ten(tbl.eps, device), valid=_ten(tbl.valid, device),
-        uniform=axes_uniform(tbl), monotone=rows_monotone(tbl))
+        uniform=axes_uniform(tbl), monotone=rows_monotone(tbl),
+        axes_monotone=axes_monotone(tbl))
 
 
 def _same_bits(a: np.ndarray) -> bool:
@@ -178,6 +182,18 @@ def _row_non_decreasing(a: np.ndarray, n: np.ndarray) -> np.ndarray:
     ok = (a[..., 1:, :] >= a[..., :-1, :]) | ~live
     first = np.isnan(a[..., :1, :]) & (n[..., None, :] > 0)
     return ok.all(axis=-2) & ~first[..., 0, :] & (n <= U)
+
+
+def axes_monotone(tbl: FastTables) -> bool:
+    """Whether every p axis is non-decreasing over its ``np`` points and
+    every T row over its ``nt`` points (no NaN; the counts at most the
+    axes' lengths): there :func:`_count_index`'s index is the one index i
+    with (i = 0 or v[i] <= x) and (i = count - 2 or v[i + 1] > x), which a
+    hint can be checked against (the fast RT kernel's per-channel
+    brackets, ``csrc/ega_rt.cu``)."""
+    np_, nt = np.asarray(tbl.np_), np.asarray(tbl.nt)
+    return bool(_row_non_decreasing(np.asarray(tbl.p), np_).all()
+                and _row_non_decreasing(np.asarray(tbl.t), nt).all())
 
 
 def rows_monotone(tbl: FastTables) -> bool:

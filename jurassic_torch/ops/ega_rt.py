@@ -45,20 +45,25 @@ def launch_shape(R: int, D: int, G: int, uniform: bool, exact: bool,
     with ``record``, the record kernel of ``ops.ega_jvp``) at R rays, D
     channels and G gases (``jt_ega_rt_shape``): resident blocks a
     multiprocessor, threads a block, rays a group, multiprocessors, the
-    groups (one block each), the resident slots, the rounds of resident
-    blocks the groups take (ceil(groups / slots)) and the groups a slot."""
+    groups (one block each), the threads a (ray, channel) lane
+    (``gas_threads``: G for the fast RT kernel, a thread a gas; 1 where a
+    thread carries all its gases), the lanes a pass and the passes a block
+    takes over its group's lanes, the resident slots, the rounds of
+    resident blocks the groups take (ceil(groups / slots)) and the groups
+    a slot."""
     import ctypes
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 8)()
     rc = _library().jt_ega_rt_shape(
         int(bool(record)), R, D, G, int(bool(uniform)), int(bool(exact)),
         int(dtype == torch.float64), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"jt_ega_rt_shape failed (cudaError {rc})")
-    per_sm, bd, nr, n_sm, groups = out
+    per_sm, bd, nr, n_sm, groups, gas_threads, lanes, passes = out
     slots = per_sm * n_sm
     return {"blocks_per_sm": per_sm, "threads": bd, "rays_per_block": nr,
             "sms": n_sm, "blocks": groups, "groups": groups,
-            "slots": slots,
+            "gas_threads": gas_threads, "lanes_per_pass": lanes,
+            "passes": passes, "slots": slots,
             "rounds": -(-groups // slots) if slots else None,
             "groups_per_slot": groups / slots if slots else None}
 
@@ -79,6 +84,8 @@ def rt_integrate_cuda(tbl: EgaDeviceTables | FastDeviceTables, sr, st, nu,
     (dev, dt, R, S, G, W, kt, ccr, win, sr_, st_, nu_) = kernel_inputs(
         tbl, sr, st, nu, cc, window, los)
     tabs, P, T, K, exact, uniform, hint, D = kt
+    # bit 0: monotone eps rows; bit 1: axes a hint may search (fast)
+    hints = int(hint) | (2 if not exact and tbl.axes_monotone else 0)
     out = RtOut(rad=torch.empty((R, D), dtype=dt, device=dev),
                 tau=torch.empty((R, D), dtype=dt, device=dev))
     if R == 0:
@@ -91,7 +98,7 @@ def rt_integrate_cuda(tbl: EgaDeviceTables | FastDeviceTables, sr, st, nu,
                                    los.t, los.ds, los.q, los.k, los.u,
                                    los.valid, los.tsurf, out.rad, out.tau)),
                 R, S, G, W, D, P, T, K, st_.shape[0], bits, int(ig_co2),
-                int(ig_h2o), int(bool(bbt)), int(uniform), int(hint),
+                int(ig_h2o), int(bool(bbt)), int(uniform), hints,
                 int(exact), *consts(), int(dt == torch.float64),
                 _stream(dev))
     LAUNCHES += 1

@@ -17,19 +17,32 @@ tables in float32 and float64, and per-channel axes
            hint, unchecked;
   nobar    ``-DJT_SPLIT_NOBAR``: no barrier per segment (one after each
            chunk of brackets);
+  noahead  ``-DJT_SPLIT_NOAHEAD``: the fast RT kernel computes no
+           brackets, continua or source a chunk ahead (their time);
+  nocont   ``-DJT_SPLIT_NOCONT``: ... no continua or source;
   bil32    ``-DJT_SPLIT_BIL32``: the exact float32 bilinear step in
            float32 (exact float32 only);
-  blocks1, blocks2, blocks3  ``-DJT_RT_BLOCKS=n -DJT_REC_BLOCKS=n``:
+  blocks1 .. blocks4  ``-DJT_RT_BLOCKS=n -DJT_REC_BLOCKS=n``:
            launch bounds asking n resident blocks an SM on either table
-           kind (the package: 2 on exact tables; on fast ones the
-           compiler's choice for the RT kernel, 3 for the record kernel),
-           which caps the registers;
+           kind (the package: 2 on exact tables and for the fast RT
+           kernel's blocks of up to 448 threads, 3 for the fast record
+           kernel), which caps the registers;
   corners1, corners2  ``-DJT_RT_CORNERS=n``: the first trips of n exact
            corners in flight together (the package: 4);
+  win5     ``-DJT_RTF_WIN=5``: the fast RT kernel's first trip loads five
+           eps row entries a corner (the package: four);
   onewave  ``full`` on the first ``slots`` groups' rays: one round of
            resident blocks;
+  hints    ``-DJT_SPLIT_HINTS``: not timed; the fast RT kernel counts,
+           per (gas, corner), the corners checked against their hint,
+           the checks that failed (a halving follows), the windows loaded
+           again (the hint beyond the cell's count) and the forward pairs
+           outside the window (two more loads), on one launch;
 
 and the floor: ``full`` on the busiest ray alone and on the 132 busiest.
+With ``--sass`` it also counts the SASS instructions of each RT and
+record kernel instantiation (``cuobjdump -sass``; static counts, not the
+instructions a launch issues) in ``full`` and the parent.
 The variants' results are wrong by design; only ``full`` is what the
 package runs.  For each it prints ptxas's registers, the resident blocks
 a multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
@@ -45,7 +58,7 @@ this, parent) and reports whether the outputs are bit for bit the same.
 Run on a machine with a card, from the repository root::
 
     python -m jurassic_torch.tools.rt_split [--parent ROOT] [--out FILE]
-        [--configs "exact float64,..."] [--variants full,index,...]
+        [--configs "exact float64,..."] [--variants full,index,...] [--sass]
 """
 from __future__ import annotations
 
@@ -69,15 +82,19 @@ from .ega_split import load_parent
 SPLIT_DIR = _build.BUILD_DIR / "split"
 SOURCES = ("ega_rt.cu", "ega_jvp_fast.cu")
 ENTRIES = ("jt_ega_rt", "jt_ega_rt_registers", "jt_ega_rt_shape",
-           "jt_ega_jvp_record", "jt_ega_jvp_scratch",
-           "jt_ega_jvp_registers")
+           "jt_ega_rt_hint_counts", "jt_ega_jvp_record",
+           "jt_ega_jvp_scratch", "jt_ega_jvp_registers")
 VARIANTS = {"full": [], "cell0": ["JT_SPLIT_CELL0"],
             "index": ["JT_SPLIT_INDEX"], "nobar": ["JT_SPLIT_NOBAR"],
+            "noahead": ["JT_SPLIT_NOAHEAD"], "nocont": ["JT_SPLIT_NOCONT"],
             "bil32": ["JT_SPLIT_BIL32"],
             "blocks1": ["JT_RT_BLOCKS=1", "JT_REC_BLOCKS=1"],
             "blocks2": ["JT_RT_BLOCKS=2", "JT_REC_BLOCKS=2"],
             "blocks3": ["JT_RT_BLOCKS=3", "JT_REC_BLOCKS=3"],
-            "corners1": ["JT_RT_CORNERS=1"], "corners2": ["JT_RT_CORNERS=2"]}
+            "blocks4": ["JT_RT_BLOCKS=4", "JT_REC_BLOCKS=4"],
+            "corners1": ["JT_RT_CORNERS=1"], "corners2": ["JT_RT_CORNERS=2"],
+            "win5": ["JT_RTF_WIN=5"], "hints": ["JT_SPLIT_HINTS"]}
+UNTIMED = ("hints",)
 # (label, KERNEL, dtype, axes)
 CONFIGS = (("exact float64", "exact", torch.float64, "uniform"),
            ("exact float32", "exact", torch.float32, "uniform"),
@@ -129,29 +146,79 @@ def finish_variant(name, out, objs, procs):
     return lib, log
 
 
+def job_path(jobs, name: str) -> Path:
+    """The library of the variant ``name`` among started jobs."""
+    return next(job[1] for job in jobs if job[0] == name)
+
+
+def sass_counts(lib: Path) -> dict:
+    """Static SASS instruction counts of the RT and record kernels'
+    instantiations in the library ``lib`` (``cuobjdump -sass``), keyed as
+    :func:`ptxas_registers`, and of their out-of-line helpers by name;
+    for each fast RT kernel also its 16 most frequent opcodes
+    (key + " opcodes")."""
+    cuobjdump = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, ops, entry = {}, {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            entry = m.group(1)
+            counts[entry], ops[entry] = 0, {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                      ln)
+        if entry and m:
+            counts[entry] += 1
+            ops[entry][m.group(1)] = ops[entry].get(m.group(1), 0) + 1
+    out = {}
+    for name, n in counts.items():
+        if re.search(r"ega_(rt|rec)_kernel", name):
+            key = ptxas_key(name)
+            if key.startswith("rt fast"):
+                out[key + " opcodes"] = dict(sorted(
+                    ops[name].items(), key=lambda kv: -kv[1])[:16])
+        else:
+            m = re.search(r"(fast_halving|row_index_rows|corner_exact_rows)"
+                          r"I([df])", name)
+            if m is None:
+                continue
+            key = m.group(0)
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def ptxas_key(entry: str) -> str:
+    """(kernel, exact|fast, dtype, uniform) of a mangled kernel name."""
+    kind = "rt" if "ega_rt_kernel" in entry else "record"
+    tab = "exact" if "ExactTab" in entry else "fast"
+    dt = ("float64" if re.search(r"kernel(?:_exact|_fast)?I[dD]", entry)
+          else "float32")
+    uni = "uniform" if re.search(r"Lb1E", entry) else "per-channel"
+    return f"{kind} {tab} {dt} {uni}"
+
+
 def ptxas_registers(log: str) -> dict[str, int]:
     """Registers (and spill stores, where any) of the RT and record
     kernels' instantiations by (kernel, exact|fast, dtype, uniform) from
     ``nvcc -Xptxas -v`` output."""
-    found, entry = {}, None
+    found, entry, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            entry = m.group(1)
+            entry, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", ln)  # the line before
+        if m:
+            spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if not (m and entry) or not re.search(r"ega_(rt|rec)_kernel",
                                               entry):
             continue
-        kind = "rt" if "ega_rt_kernel" in entry else "record"
-        tab = "exact" if "ExactTab" in entry else "fast"
-        dt = ("float64" if re.search(r"kernel(?:_exact|_fast)?I[dD]", entry)
-              else "float32")
-        uni = "uniform" if re.search(r"Lb1E", entry) else "per-channel"
-        key = f"{kind} {tab} {dt} {uni}"
+        key = ptxas_key(entry)
         found[key] = int(m.group(1))
-        spill = re.search(r"(\d+) bytes spill stores", ln)
-        if spill and int(spill.group(1)):
-            found[key + " spill bytes"] = int(spill.group(1))
+        if spill:
+            found[key + " spill bytes"] = spill
     return found
 
 
@@ -233,6 +300,8 @@ def main() -> None:
     ap.add_argument("--variants", default=None,
                     help="comma-separated variants to build and time "
                     "(default: all; full is always built)")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the kernels' SASS instructions")
     ns = ap.parse_args()
     configs = [c for c in CONFIGS if ns.configs is None
                or c[0] in ns.configs.split(",")]
@@ -267,6 +336,13 @@ def main() -> None:
         result["registers"]["parent"] = ptxas_registers(
             p_build.build_log())
     print(f"variants built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if ns.sass:
+        libs_sass = {"full": job_path(jobs, "full")}
+        if p_mods is not None:
+            libs_sass["parent"] = p_build.library_path()
+        result["sass"] = {k: sass_counts(v) for k, v in libs_sass.items()}
+        for k, v in result["sass"].items():
+            print(f"SASS instructions, {k}: {v}", flush=True)
     for name, regs in result["registers"].items():
         print(f"registers, {name}: {regs}", flush=True)
 
@@ -286,8 +362,8 @@ def main() -> None:
         for kname, entry in KERNELS.items():
             call = calls[kname]
             r = res[kname] = {"variants": {}, "shape": {}}
-            names = [n for n in timed
-                     if n != "bil32" or label == "exact float32"]
+            names = [n for n in timed if n not in UNTIMED
+                     and (n != "bil32" or label == "exact float32")]
             try:
                 for name in dict.fromkeys(["full", *names]):
                     _build._lib = libs[name]
@@ -326,7 +402,12 @@ def main() -> None:
                       f"{s.get('threads')} threads, {s.get('blocks')} "
                       f"blocks for {s.get('groups')} groups of "
                       f"{s.get('rays_per_block')} rays, {s.get('rounds')} "
-                      "round(s)", flush=True)
+                      f"round(s), {s.get('gas_threads')} thread(s) a lane, "
+                      f"{s.get('lanes_per_pass')} lanes a pass, "
+                      f"{s.get('passes')} pass(es)", flush=True)
+            if kname == "rt" and not exact and "hints" in libs:
+                r["hints"] = hint_split(libs["hints"], package_lib, call,
+                                        tbl, los, G)
             if p_mods is not None:
                 ptbl = parent_tables(tbl, ns.parent)
                 pcall = lambda lo, mod=p_mods["ega_rt" if kname == "rt"
@@ -361,6 +442,47 @@ def main() -> None:
     if ns.out is not None:
         ns.out.parent.mkdir(parents=True, exist_ok=True)
         ns.out.write_text(line + "\n")
+
+
+def hint_counts(lib) -> dict:
+    """The fast RT kernel's hint count since the last call, from a library
+    built with ``-DJT_SPLIT_HINTS`` (``jt_ega_rt_hint_counts``, which
+    zeroes it): per counter ("checked", "failed", "window again",
+    "forward outside") a [64][4] list, [gas][corner] (gases from 63 on in
+    63)."""
+    out = (ctypes.c_ulonglong * (4 * 64 * 4))()
+    rc = lib.jt_ega_rt_hint_counts(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"jt_ega_rt_hint_counts failed (cudaError {rc})")
+    v = list(out)
+    return {k: [v[(i * 64 + g) * 4:(i * 64 + g) * 4 + 4] for g in range(64)]
+            for i, k in enumerate(("checked", "failed", "window again",
+                                   "forward outside"))}
+
+
+def hint_split(lib, package_lib, call, tbl, los, G: int) -> dict:
+    """The fast RT kernel's hint count on one launch at ``los`` (the
+    ``hints`` variant): per (gas, corner) the corners checked, failed,
+    windows loaded again and forward pairs outside the window, printed
+    with the failed share."""
+    try:
+        _build._lib = lib
+        hint_counts(lib)                         # zero it
+        call(tbl, los)
+        torch.cuda.synchronize()
+        hc = hint_counts(lib)
+    finally:
+        _build._lib = package_lib
+    out = {k: v[:G] for k, v in hc.items()}
+    checked = sum(map(sum, out["checked"]))
+    for k in ("failed", "window again", "forward outside"):
+        n = sum(map(sum, out[k]))
+        print(f"  hints: {k} {n} of {checked} checked corners "
+              f"({n / max(checked, 1):.4%}); per gas, corners 0-3: "
+              + "; ".join(" ".join(str(x) for x in row)
+                          for row in out[k]), flush=True)
+    out["checked corners"] = checked
+    return out
 
 
 def m_call(call, mod, tbl, lo):

@@ -270,7 +270,8 @@ def main() -> None:
 
         def parent(rargs):
             tbl, sr, st, nu, cc, window, los, *rest = rargs
-            ptbl = pega.FastDeviceTables(*tbl)
+            ptbl = pega.FastDeviceTables(
+                *tbl[:len(pega.FastDeviceTables._fields)])
             pcc = pcon.ContinuaCoeffs(*cc)
             plos = pgeo.LosData(*los)
             return pej.rt_jvp_records_cuda(ptbl, sr, st, nu, pcc, window,

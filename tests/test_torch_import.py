@@ -118,4 +118,4 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
         "jt_trace_quo_check",
         "jt_ega_jvp_record", "jt_ega_jvp_contract", "jt_ega_jvp_scratch",
         "jt_ega_jvp_registers", "jt_ega_rt", "jt_ega_rt_registers",
-        "jt_ega_rt_shape"}
+        "jt_ega_rt_shape", "jt_ega_rt_hint_counts"}
