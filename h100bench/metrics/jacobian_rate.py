@@ -1,0 +1,9 @@
+"""jacobian_rate: entries of K (state elements x rays x channels) of every
+``kernel_autodiff`` call completed in the window, over the window's
+seconds (host clock)."""
+
+
+def read(run):
+    if not run.done:
+        return None
+    return run.done * run.work / run.window_s
