@@ -11,7 +11,9 @@ gate before timings are reported (formod.c:106-166); ``BENCH_SCALING 1``
 sweeps power-of-2 ray and channel counts (formod.c:84-92) on the loaded
 model's tables cut by channel, so no table is read and no turbo fit
 runs again.  ``PROFILE <dir>`` writes a torch.profiler trace of model
-set-up and the first formod.
+set-up and the first formod, whose spans (``ForwardModel.phase_log``)
+are drawn beside the kernels; it prints the device's idle time over that
+call by span and, beside the launch line, the call's split and counts.
 
 The last line reports the device, what the last pass ran (``turbo``,
 ``table``, ``turbo+hybrid``, or the eager ``exact`` / ``fast``) and the
@@ -141,9 +143,12 @@ def main(argv=None) -> int:
         timer("INIT_MODEL", 1)
         fm = ForwardModel(ctl)
         timer("INIT_MODEL", 3)
+        if profile_dir != "-":
+            fm.phase_log = []
         timer("WARM-UP", 1)
         fm.formod(atm, obs)
         timer("WARM-UP", 3)
+    log, fm.phase_log = fm.phase_log, None
     write_obs(argv[4], ctl, obs)
 
     if s.scan_int("BENCH_SCALING", -1, "0"):
@@ -156,6 +161,10 @@ def main(argv=None) -> int:
           f"fused EGA kernel launches turbo "
           f"{ega_fused.LAUNCHES - n_turbo} table "
           f"{ega_fused.LAUNCHES_TABLE - n_table}")
+    if log:
+        print("# formod: warm-up split " + ", ".join(
+            f"{k} {v:.2f}" for k, v in log[0].items()) + " ms; counts "
+            + ", ".join(f"{k} {v}" for k, v in log[0].counts.items()))
     return 0
 
 

@@ -39,7 +39,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -67,6 +66,7 @@ from .ops.turbo_fit import (CHORD_TOL, FIT_TOL, TurboStats, TurboTables,
                             slice_turbo_tables, uniform_axes)
 from .tables import (EgaTables, FastTables, build_fast_tables,
                      cache_filename, load_tables_cached)
+from .utils.phases import PhaseClock, begin
 
 FAST_KERNELS = ("auto", "jax", "pallas", "turbo", "fast")
 FUSED_KERNELS = ("auto", "turbo", "pallas")
@@ -443,36 +443,6 @@ def pencil_geometry(ctl: Ctl, atm: Atm) -> tuple[Ctl, Atm]:
     return dataclasses.replace(ctl, ip=1), first
 
 
-class PhaseClock:
-    """Where one ``formod`` call's time goes, taken inside that call: a
-    mark at every phase boundary -- a CUDA event on the current stream on
-    a card, the host clock on the CPU.  :meth:`split` sums the
-    milliseconds between consecutive marks under the name of the mark
-    that ends them, so the parts add up to the call."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.marks: list = []
-        self.mark("begin")
-
-    def mark(self, name: str) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        else:
-            ev = time.perf_counter()
-        self.marks.append((name, ev))
-
-    def split(self) -> dict:
-        if self.cuda:
-            self.marks[-1][1].synchronize()
-        out: dict = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-            out[name] = out.get(name, 0.0) + ms
-        return out
-
-
 class EagerTables(NamedTuple):
     """What :func:`rt_integrate` takes of a model besides its source
     table and flags (:meth:`ForwardModel.eager_tables`)."""
@@ -503,8 +473,10 @@ class ForwardModel:
     acceptance gate reads ``turbo_stats``: for a channel range, those of
     the fit of all channels decide as the full model does).
 
-    ``phase_log``: when set to a list, every :meth:`formod` appends the
-    split of its own time (:class:`PhaseClock`).
+    ``phase_log``: when set to a list, every :meth:`formod` (and every
+    ``retrieval.kernel_autodiff`` given this model) appends the record of
+    its spans and counts (``utils.phases.PhaseRecord``; as a mapping, the
+    split of the call's time by leaf).
 
     After construction ``kernel_mode`` is ``"fused"``, ``"exact"`` or
     ``"fast"``; in fused mode ``turbo_tbl`` holds the turbo tables (None
@@ -541,9 +513,10 @@ class ForwardModel:
         self.table_tbl: TableTables | None = None
         self.last_variant: str | None = None
         self._raypack_printed = None
+        self.free_bytes_read: int | None = None
         self._streams = None
         self.phase_log: list | None = None
-        self._clock: PhaseClock | None = None
+        self._clock: PhaseClock | None = None   # the running formod's
         if use_fast:
             if fast_tables is None:
                 fast_tables = build_fast_tables(tables)
@@ -764,13 +737,15 @@ class ForwardModel:
         90 % of the card's free memory (the reference sizes its lanes to
         90 % of free, GPUdrivers.cu:296-321).  Free memory is read on
         every call (``torch.cuda.mem_get_info`` plus what PyTorch's
-        allocator holds unused).  On the CPU the batch is one package."""
+        allocator holds unused; kept as ``free_bytes_read``, None where
+        none was read).  On the CPU the batch is one package."""
+        self.free_bytes_read = None
         pack = int(self.ctl.raypack)
         if pack > 0:
             return pack
         if pack < 0 or self.device.type != "cuda":
             return 0
-        free = self.free_device_bytes()
+        free = self.free_bytes_read = self.free_device_bytes()
         flight, kept = self._ray_bytes()
         fit = max((int(0.9 * free) - nr * kept) // (2 * flight), 1)
         fit = 0 if fit >= nr else fit
@@ -794,13 +769,13 @@ class ForwardModel:
     def _trace_deferred(self, atm: Atm, obs: Obs, hydro: bool = True):
         """(LosData, entry flag) of :meth:`trace`, with no host
         sync (``geometry.trace_rays_deferred``): the package loop reads the
-        flag with its one pull.  The host's profile preparation ends at
-        the ``profiles`` mark."""
+        flag with its one pull.  The host's profile preparation is the
+        ``profiles`` span."""
         if hydro:
             hydrostatic_atm(self.ctl, atm)
         prof = build_ray_profiles(self.ctl, atm, obs, self.dtype,
                                   self.device)
-        self._mark("profiles")
+        begin(self._clock, "trace")
         return trace_rays_deferred(self.ctl, prof, self._obs_geo(obs))
 
     @staticmethod
@@ -825,7 +800,7 @@ class ForwardModel:
         geo_ctl, first = pencil_geometry(ctl, atm)
         prof = build_ray_profiles(geo_ctl, first, obs, self.dtype,
                                   self.device)
-        self._mark("profiles")
+        begin(self._clock, "trace")
         los, flag = trace_rays_deferred(geo_ctl, prof, self._obs_geo(obs))
         # re-sample along the traced paths; padded LOS points (beyond
         # np_) carry stale coordinates: clamp them to the first
@@ -871,14 +846,15 @@ class ForwardModel:
         tables have none)."""
         if self.kernel_mode != "fused":
             if self.pass_mode() == "kernel":
+                begin(self._clock, "kernel")
                 out = self.integrate_kernel(los)
                 self.last_variant = f"{self.kernel_mode} kernel"
-                self._mark("kernel")
             else:
+                begin(self._clock, "eager pass")
                 self.last_variant = self.kernel_mode
                 out = self.integrate_eager(los)
-                self._mark("eager pass")
             return out, None
+        begin(self._clock, "kernel")
         args = (self.cc_rows, los, self.flags, self.ig_co2, self.ig_h2o)
         if self.turbo_tbl is None:
             rad, tau = rt_fused_table(self.table_tbl, *args)
@@ -886,9 +862,8 @@ class ForwardModel:
         else:
             rad, tau, taint = rt_fused_turbo(self.turbo_tbl, *args)
             self.last_variant = "turbo"
-        self._mark("kernel")
+        begin(self._clock, "epilogue")
         out = self._epilogue(rad, tau, los)
-        self._mark("epilogue")
         return out, taint
 
     def integrate_eager(self, los: LosData) -> RtOut:
@@ -969,22 +944,43 @@ class ForwardModel:
         ``RAYPACK`` (:meth:`package_size`); ``IP = 2/3`` runs the pencil
         path on the whole batch, as the JAX package does.
         ``EARLY_EXIT`` is accepted and changes nothing (the exit is
-        bitwise exact)."""
+        bitwise exact).
+
+        With ``phase_log`` a list, the call's spans (root ``formod``):
+        ``hydrostatics`` (with the mask's read), ``raypack sizing``
+        (:meth:`package_size` and the package loop's stream set-up); per
+        package ``profiles``, ``trace``, ``kernel`` or ``eager pass``,
+        ``epilogue`` (fused); then ``D2H``, ``host``, ``hybrid re-run +
+        D2H`` (tainted packages), ``FOV + mask``.  The pencil path (``IP
+        = 2/3``) begins in its package's ``profiles``.  Counts: ``rays``,
+        ``packages``, ``rays_per_package``, ``free_bytes`` (where the
+        sizing read it), ``segments`` (valid LOS points, carried in the
+        pull) and ``lanes_rerun`` (tainted lanes spliced from the table
+        kernel).  A call that raises appends no record."""
         ctl = self.ctl
         if ctl.checkmode:
             print(f"# formod: checkmode = {ctl.checkmode}, "
                   "no actual computation is performed!")
             return obs
-        clock = self._clock = (PhaseClock(self.device)
+        clock = self._clock = (PhaseClock("formod", self.device,
+                                          self.phase_log)
                                if self.phase_log is not None else None)
-        mask = ~np.isfinite(obs.rad)                  # save_mask
-        self.formod_rays(atm, obs)
-        formod_fov(ctl, obs)
-        obs.rad[mask] = np.nan                        # apply_mask
-        if clock is not None:
-            clock.mark("FOV + mask")
-            self.phase_log.append(clock.split())
+        try:
+            if ctl.ip == 1:
+                begin(clock, "hydrostatics")
+            else:
+                begin(clock, "profiles", 0)
+            mask = ~np.isfinite(obs.rad)              # save_mask
+            self.formod_rays(atm, obs)
+            begin(clock, "FOV + mask")
+            formod_fov(ctl, obs)
+            obs.rad[mask] = np.nan                    # apply_mask
+            if clock is not None:
+                clock.finish()
+        finally:
             self._clock = None
+            if clock is not None:
+                clock.close()
         return obs
 
     def formod_rays(self, atm: Atm, obs: Obs) -> None:
@@ -995,20 +991,16 @@ class ForwardModel:
         pencil path on the whole batch."""
         if self.ctl.ip == 1:
             hydrostatic_atm(self.ctl, atm)            # once, up front
-            self._mark("hydrostatics")
+            begin(self._clock, "raypack sizing")
             pack = self.package_size(obs.nr)
+            if self._clock is not None and self.free_bytes_read is not None:
+                self._clock.counts["free_bytes"] = self.free_bytes_read
             self._run_packages(
                 obs, pack or obs.nr,
                 lambda o: self._trace_deferred(atm, o, hydro=False))
         else:
             self._run_packages(obs, obs.nr,
                                lambda o: (self.pencil_trace(atm, o), None))
-
-    def _mark(self, name: str) -> None:
-        """A phase boundary of the running formod's :class:`PhaseClock`
-        (none unless ``phase_log`` is set)."""
-        if self._clock is not None:
-            self._clock.mark(name)
 
     def _stream_ctx(self, k: int):
         """Package k's CUDA stream context (two streams in turns); a
@@ -1031,50 +1023,61 @@ class ForwardModel:
         packages that carry taint re-run through the table kernel; their
         lanes are spliced one by one."""
         R = obs.nr
+        clock = self._clock
         pkgs = []
         for k, start in enumerate(range(0, R, max(pack, 1))):
             rows = slice(start, min(start + pack, R))
             obs_k = obs if pack >= R else _obs_rows(obs, rows)
             with self._stream_ctx(k):
+                begin(clock, "profiles", k)
                 los, flag = trace(obs_k)
-                self._mark("trace")
                 out, taint = self._integrate_deferred(los)
             if flag is None:
                 flag = torch.zeros(los.tpz.shape, dtype=torch.int32,
                                    device=los.tpz.device)
             pull = (out.rad, out.tau, los.tpz, los.tplon, los.tplat, flag)
-            if taint is None:
-                pkgs.append(_Package(rows, pull, None))
-            else:
-                pkgs.append(_Package(rows, pull + (taint,), los))
+            if taint is not None:
+                pull += (taint,)
+            if clock is not None:
+                pull += (los.np_,)
+            pkgs.append(_Package(rows, pull, None if taint is None else los))
             del los, out
+        begin(clock, "D2H", None)
         if self._streams is not None:
             cur = torch.cuda.current_stream(self.device)
             for s in self._streams:
                 cur.wait_stream(s)
         host = self.outputs_to_host_many([p.pull for p in pkgs])
-        self._mark("D2H")
+        begin(clock, "host")
         for h in host:
             check_entry_flag(h[5])
         D = self.ctl.nd
         fields = [np.empty((R, D)), np.empty((R, D)),
                   np.empty(R), np.empty(R), np.empty(R)]
+        rerun = 0
         for p, h in zip(pkgs, host):
             if p.los is not None:
                 taint = h[6] > 0.5
                 if taint.any():
+                    begin(clock, "hybrid re-run + D2H")
                     rad2, tau2 = self.outputs_to_host(self._table_redo(p.los))
                     h[0][taint] = rad2[taint]
                     h[1][taint] = tau2[taint]
+                    n_taint = int(taint.sum())
+                    rerun += n_taint
                     self.last_variant = "turbo+hybrid"
-                    print(f"# turbo hybrid: {int(taint.sum())} of "
+                    print(f"# turbo hybrid: {n_taint} of "
                           f"{taint.size} lanes re-evaluated through the "
                           "table kernel")
-                    self._mark("hybrid re-run + D2H")
+                    begin(clock, "host")
             for dst, a in zip(fields, h[:5]):
                 dst[p.rows] = a
         obs.rad, obs.tau, obs.tpz, obs.tplon, obs.tplat = fields
-        self._mark("host")
+        if clock is not None:
+            clock.counts.update(
+                rays=R, packages=len(pkgs), rays_per_package=min(pack, R),
+                segments=int(sum(h[-1].sum() for h in host)),
+                lanes_rerun=rerun)
 
     @staticmethod
     def outputs_to_host(arrays) -> tuple[np.ndarray, ...]:

@@ -341,31 +341,60 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
     Jacobian runs ray package by ray package (:func:`autodiff_package_
     size`; one line names the packages and the route) and stacks their
     rows: the same bits as one package.  A CUDA model launches the two
-    kernels once per package, or raises; nothing falls back."""
+    kernels once per package, or raises; nothing falls back.
+
+    With the model's ``phase_log`` a list, the call appends its record
+    (``utils.phases``, root ``kernel_autodiff``): spans ``seed``,
+    ``sizing``, per package ``package tangents``, ``tracer tangents``,
+    ``RT tangents``, ``K gather`` (the masked row select), ``K to host``
+    (K's rows and the entry flags copied to the host), then ``K
+    assembly``; count ``k_bytes`` (the bytes of K copied to the host).
+    A call that raises appends no record."""
     import torch
 
     from .forward import ForwardModel, _obs_rows
     from .geometry import check_entry_flag, trace_rays_jvp
+    from .utils.phases import PhaseClock, begin
 
     if model is None:
         model = ForwardModel(ctl)
-    mask = ~np.isfinite(obs.rad)
-    seed = autodiff_seed(ctl, atm, model)
-    n = seed.map.x0.size
+    clock = None if model.phase_log is None else PhaseClock(
+        "kernel_autodiff", model.device, model.phase_log)
+    try:
+        begin(clock, "seed")
+        mask = ~np.isfinite(obs.rad)
+        seed = autodiff_seed(ctl, atm, model)
+        n = seed.map.x0.size
 
-    def package_jacobian(obs_k: Obs, mask_k: np.ndarray) -> np.ndarray:
-        prof, ptan, geo = package_tangents(ctl, atm, obs_k, model, seed)
-        los, tan, flag = trace_rays_jvp(ctl, prof, ptan, geo)
-        _, drad = model.integrate_jvp(los, tan)       # [r, D, n]
-        rows = drad[~torch.from_numpy(mask_k).to(model.device)]
-        out = rows.to(torch.float64).cpu().numpy()
-        check_entry_flag(flag.cpu().numpy())
-        return out
+        def package_jacobian(r: slice, k: int) -> np.ndarray:
+            begin(clock, "package tangents", k)
+            obs_k = _obs_rows(obs, r)
+            prof, ptan, geo = package_tangents(ctl, atm, obs_k, model, seed)
+            begin(clock, "tracer tangents")
+            los, tan, flag = trace_rays_jvp(ctl, prof, ptan, geo)
+            begin(clock, "RT tangents")
+            _, drad = model.integrate_jvp(los, tan)       # [r, D, n]
+            begin(clock, "K gather")
+            rows = drad[~torch.from_numpy(mask[r]).to(model.device)]
+            begin(clock, "K to host")
+            out = rows.to(torch.float64).cpu().numpy()
+            check_entry_flag(flag.cpu().numpy())
+            return out
 
-    route = ("tangent kernels" if model.device.type == "cuda"
-             else "plain tangent chain")
-    return np.concatenate([package_jacobian(_obs_rows(obs, r), mask[r])
-                           for r in _packages(model, obs, n, route)])
+        route = ("tangent kernels" if model.device.type == "cuda"
+                 else "plain tangent chain")
+        begin(clock, "sizing")
+        ks = [package_jacobian(r, k)
+              for k, r in enumerate(_packages(model, obs, n, route))]
+        begin(clock, "K assembly", None)
+        K = np.concatenate(ks)
+        if clock is not None:
+            clock.counts["k_bytes"] = K.nbytes
+            clock.finish()
+        return K
+    finally:
+        if clock is not None:
+            clock.close()
 
 
 class AutodiffSeed(NamedTuple):

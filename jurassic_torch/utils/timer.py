@@ -64,25 +64,51 @@ def timed(name: str, silent: bool = False):
         box.dt = timer(name, -3 if silent else 3, frame)
 
 
+# the records of the program's phase clocks while profile_trace is open,
+# else None: the profiler, like this state, is one per process
+_trace_records: list | None = None
+
+
+def open_trace_records() -> list | None:
+    """The list a phase clock appends its record to while
+    :func:`profile_trace` is open (its spans then also profiler ranges),
+    else None."""
+    return _trace_records
+
+
 @contextlib.contextmanager
 def profile_trace(logdir: str | None):
     """Opt-in torch.profiler trace around a region, written to
     ``<logdir>/trace.json`` (Chrome trace format; open it in Perfetto);
-    no-op when logdir is falsy.  CUDA activity is recorded when a card is
-    present (the kernel-level cost attribution the reference got from
-    gprof / ptxas reports)."""
+    yields the profiler, or None (a no-op) when logdir is falsy.  CUDA
+    activity is recorded when a card is present (the kernel-level cost
+    attribution the reference got from gprof / ptxas reports).
+
+    Inside it, a model whose ``phase_log`` is a list draws each span of
+    its calls as a range beside the kernels (``utils.phases``); on
+    closing, the device's idle time over those calls is printed split by
+    the leaf spans each idle gap overlaps."""
+    global _trace_records
     if not logdir:
         yield
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from . import phases
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     out = Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    _trace_records = records = []
+    try:
+        with profile(activities=acts) as prof:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        _trace_records = None
     prof.export_chrome_trace(str(out / "trace.json"))
+    if records:
+        print(phases.idle_report(prof, records))

@@ -103,7 +103,8 @@ def test_formod_bench_scaling_matches_jax(tmp_path, monkeypatch, capsys):
 
 def test_formod_profile(tmp_path, monkeypatch, capsys):
     """``PROFILE <dir>``: a torch.profiler trace of set-up and the first
-    formod."""
+    formod, whose spans it prints split by leaf with the call's counts
+    beside the launch line, after the device's idle time by span."""
     work = tmp_path / "ega"
     _ega_dir(work, nr=1)
     monkeypatch.chdir(work)
@@ -112,4 +113,9 @@ def test_formod_profile(tmp_path, monkeypatch, capsys):
                         "rad_out.tab", "KERNEL", "fast", "PROFILE",
                         "prof"]) == 0
     assert (work / "prof" / "trace.json").stat().st_size > 0
-    assert "variant fast" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "variant fast" in out
+    assert "# profile_trace: device idle" in out
+    split = [ln for ln in out.splitlines()
+             if ln.startswith("# formod: warm-up split hydrostatics")]
+    assert len(split) == 1 and "counts rays 1, packages 1" in split[0]
