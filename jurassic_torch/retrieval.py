@@ -310,6 +310,15 @@ def _packages(model: "ForwardModel", obs: Obs, n: int, route: str):
     return [slice(a, min(a + pack, obs.nr)) for a in starts]
 
 
+def _pinned_blocks_made(cuda: bool) -> int:
+    """The page-locked blocks PyTorch's caching host allocator has made
+    in this process (0 off a card; its statistics are empty before its
+    first block)."""
+    import torch
+    return (torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+            if cuda else 0)
+
+
 def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
                     model: Optional["ForwardModel"] = None) -> np.ndarray:
     """Jacobian K[m, n] = d rad / d x in forward mode (n, the state size,
@@ -339,17 +348,28 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
 
     A ray's rows depend only on its own profile and geometry, so the
     Jacobian runs ray package by ray package (:func:`autodiff_package_
-    size`; one line names the packages and the route) and stacks their
-    rows: the same bits as one package.  A CUDA model launches the two
-    kernels once per package, or raises; nothing falls back.
+    size`; one line names the packages and the route), each package's
+    rows copied straight into their place in K: the same bits as one
+    package.  K's host storage is taken once a call, before the first
+    package, page-locked on a CUDA model (PyTorch's caching host
+    allocator: a closed loop that drops its last K reuses the block),
+    so that each package's rows reach it in one stream-ordered copy; K
+    is the caller's own, aliased by nothing the model keeps.  A CUDA
+    model launches the two kernels once per package, or raises; nothing
+    falls back.
 
     With the model's ``phase_log`` a list, the call appends its record
     (``utils.phases``, root ``kernel_autodiff``): spans ``seed``,
-    ``sizing``, per package ``package tangents``, ``tracer tangents``,
-    ``RT tangents``, ``K gather`` (the masked row select), ``K to host``
-    (K's rows and the entry flags copied to the host), then ``K
-    assembly``; count ``k_bytes`` (the bytes of K copied to the host).
-    A call that raises appends no record."""
+    ``sizing`` (the packages and K's host storage), per package
+    ``package tangents``, ``tracer tangents``, ``RT tangents``, ``K
+    gather`` (the masked row select), ``K to host`` (the rows' copy
+    into K and the entry flags' pull, which waits for it), then ``K
+    assembly`` (what is left after the packages); counts ``k_bytes``
+    (the bytes of K copied to the host), ``k_pinned_bytes`` (those that
+    landed in page-locked memory) and ``k_pin_allocs`` (page-locked
+    blocks the call made: the change in the host allocator's
+    ``num_host_alloc``, 0 on the CPU).  A call that raises appends no
+    record."""
     import torch
 
     from .forward import ForwardModel, _obs_rows
@@ -358,15 +378,22 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
 
     if model is None:
         model = ForwardModel(ctl)
+    cuda = model.device.type == "cuda"
     clock = None if model.phase_log is None else PhaseClock(
         "kernel_autodiff", model.device, model.phase_log)
+    allocs0 = None if clock is None else _pinned_blocks_made(cuda)
     try:
         begin(clock, "seed")
         mask = ~np.isfinite(obs.rad)
         seed = autodiff_seed(ctl, atm, model)
         n = seed.map.x0.size
-
-        def package_jacobian(r: slice, k: int) -> np.ndarray:
+        route = "tangent kernels" if cuda else "plain tangent chain"
+        begin(clock, "sizing")
+        packages = _packages(model, obs, n, route)
+        ends = np.cumsum([0] + [np.count_nonzero(~mask[r])
+                                for r in packages]).tolist()
+        K = torch.empty((ends[-1], n), dtype=torch.float64, pin_memory=cuda)
+        for k, r in enumerate(packages):
             begin(clock, "package tangents", k)
             obs_k = _obs_rows(obs, r)
             prof, ptan, geo = package_tangents(ctl, atm, obs_k, model, seed)
@@ -377,21 +404,17 @@ def kernel_autodiff(ctl: Ctl, atm: Atm, obs: Obs,
             begin(clock, "K gather")
             rows = drad[~torch.from_numpy(mask[r]).to(model.device)]
             begin(clock, "K to host")
-            out = rows.to(torch.float64).cpu().numpy()
+            K[ends[k]:ends[k + 1]].copy_(rows.to(torch.float64),
+                                         non_blocking=True)
             check_entry_flag(flag.cpu().numpy())
-            return out
-
-        route = ("tangent kernels" if model.device.type == "cuda"
-                 else "plain tangent chain")
-        begin(clock, "sizing")
-        ks = [package_jacobian(r, k)
-              for k, r in enumerate(_packages(model, obs, n, route))]
         begin(clock, "K assembly", None)
-        K = np.concatenate(ks)
         if clock is not None:
-            clock.counts["k_bytes"] = K.nbytes
+            clock.counts.update(
+                k_bytes=K.nbytes,
+                k_pinned_bytes=K.nbytes if K.is_pinned() else 0,
+                k_pin_allocs=_pinned_blocks_made(cuda) - allocs0)
             clock.finish()
-        return K
+        return K.numpy()
     finally:
         if clock is not None:
             clock.close()

@@ -123,8 +123,10 @@ def test_formod_segments_counter(flagship):
 
 
 def test_kernel_autodiff_record(jacobian):
-    """A ``kernel_autodiff`` record: its leaves under their parents, and
-    ``k_bytes``, the bytes of K copied to the host, K's own."""
+    """A ``kernel_autodiff`` record: its leaves under their parents;
+    ``k_bytes``, the bytes of K copied to the host, K's own; on the CPU
+    none of them page-locked (``k_pinned_bytes``) and no page-locked
+    block made (``k_pin_allocs``)."""
     from h100bench import program
     m = jacobian.model
     m.phase_log = []
@@ -135,7 +137,8 @@ def test_kernel_autodiff_record(jacobian):
     assert [(s.name, s.parent) for s in rec.leaves()] == AUTODIFF_LEAVES
     assert sum(rec.values()) == pytest.approx(rec.spans[0].stream_ms[1],
                                               rel=1e-9)
-    assert rec.counts == dict(k_bytes=K.nbytes)
+    assert rec.counts == dict(k_bytes=K.nbytes, k_pinned_bytes=0,
+                              k_pin_allocs=0)
 
 
 def test_ranges_only_under_profile_trace(flagship, tmp_path, capsys):

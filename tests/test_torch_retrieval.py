@@ -9,8 +9,8 @@ the CPU.
   ``tests/test_retrieval.py:20-34`` (a 10-element state), within 1e-8 of
   max|K|; the port's FD ``kernel`` against its autodiff there at JAX's
   bars (``:67-75``); the matrix round trip (``:188-198``).
-* The ray packages of ``kernel_autodiff``: bit for bit one package, and
-  their sizing on a card.
+* The ray packages of ``kernel_autodiff``: bit for bit one package, with
+  masked radiances in them too, and their sizing on a card.
 
 JAX's model runs its jnp pipeline on the CPU under ``KERNEL = auto``;
 the port's twin is its eager ``KERNEL = jax`` model (on the CPU the
@@ -208,6 +208,38 @@ def test_packages_bitwise(setup, capsys):
     assert "# kernel_autodiff: 2 package(s) of up to 2 rays, n = 10" \
         in capsys.readouterr().out
     np.testing.assert_array_equal(K2, s["K"])
+
+
+@pytest.mark.parametrize("nan_at", [
+    [(0, 1), (1, 0), (1, 3), (2, 2), (3, 0), (3, 1)],   # in both packages
+    [(0, d) for d in range(4)] + [(1, d) for d in range(4)] + [(3, 2)],
+], ids=["both packages", "package 0 whole"])
+def test_packages_bitwise_masked(setup, nan_at):
+    """Masked radiances in the packages of RAYPACK 2: each package's rows
+    land at their offset in K, so K is bit for bit the one-package K's
+    finite rows (a row does not depend on the mask, which only selects
+    rows: the unmasked one-package K of ``setup`` has every row) and the
+    stack of the rows of each package's rays alone (what the packages
+    gave before their rows were copied into K in place)."""
+    from jurassic_torch.forward import _obs_rows
+
+    s = setup
+    obs = port_obs(s["obs"].copy())
+    for ray, ch in nan_at:
+        obs.rad[ray, ch] = np.nan
+    finite = np.isfinite(obs.rad).ravel()
+    ctl = dataclasses.replace(s["ctl_t"], raypack=2)
+    model = ForwardModel(ctl, fast_tables=s["model"].fast_tables,
+                         device="cpu")
+    K = tret.kernel_autodiff(ctl, port_atm(s["atm"].copy()), obs, model)
+    rows = [tret.kernel_autodiff(ctl, port_atm(s["atm"].copy()),
+                                 _obs_rows(obs, r), model)
+            for r in (slice(0, 2), slice(2, 4))]
+    assert K.shape == (int(finite.sum()), 10) == (len(s["K"]) - len(nan_at),
+                                                   10)
+    assert K.dtype == np.float64 and K.flags.c_contiguous
+    np.testing.assert_array_equal(K, s["K"][finite])
+    np.testing.assert_array_equal(K, np.concatenate(rows))
 
 
 def test_package_sizing_on_a_card(setup, monkeypatch):
